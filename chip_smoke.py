@@ -1,26 +1,50 @@
 #!/usr/bin/env python3
-"""On-card smoke test of the PyTorch port's main path, on one NVIDIA GPU.
+"""On-card smoke test of the PyTorch port's main paths, on one NVIDIA GPU.
 
     python3 chip_smoke.py        (from the repository root; needs one card)
 
 Phases, in order; any failure raises and the exit code is not 0:
 
 0. the card: name and power limit, torch and CUDA versions;
-1. build the CUDA Newton-Schulz kernel from ``cwbnwp_letkf_torch/csrc``;
-2. the kernel against its plain PyTorch version at the main path's stacked
-   shape ``[12288, 40, 40]`` and at ``[2048, 96, 96]``, on seeded normal
-   matrices and on ill-conditioned dense-obs ones, with both times;
+1. build both kernel libraries from ``cwbnwp_letkf_torch/csrc``, one
+   ``nvcc`` per source, started together;
+2. K1, the Newton-Schulz kernel, against its plain PyTorch version at the
+   main path's stacked shape ``[12288, 40, 40]`` and at ``[2048, 96, 96]``,
+   on seeded normal matrices and on ill-conditioned dense-obs ones, with
+   both times;
 3. the slice: the fused production-grouped cycle (prepare_platform ->
    plan_cycle_budgets -> update_points_cycle -> tune_q) on the bench case,
    327,680 points x 16 variables at k=40, checked for finite values, zero
    overflow, a converged solve, kernel launches and a lower analysis RMSE;
    then a second, warm run, timed;
-4. the kernel against the plain version on the real normal matrices of the
-   cycle's first chunk.
+4. K1 against the plain version on the real normal matrices of the cycle's
+   first chunk; then the first chunk's analysis through the Jacobi solve,
+   K1, and lower-precision controls (fewer sweeps, no polish), each against
+   float64 eigh in units of the analysis increment: what the limit of
+   phases 7 and 8 can see;
+5. K2, the ``rmul`` packing of the same kernel: its entry point
+   ``ns_kernel.ns_invsqrt_cuda(packing="rmul")`` (the reach the TPU package
+   gives it) driven on phase 4's real matrices, then K2 against its plain
+   version and against K1 on phase 2's sets, with both times;
+6. K3 and K4, the Jacobi eigensolvers, against their plain versions at
+   ``[4096, 40, 40]`` and ``[2048, 96, 96]`` (K3), ``[4096, 41, 41]`` and
+   ``[512, 9, 9]`` (K4): eigenvalues element by element, reconstruction,
+   orthogonality and float64 eigenvalues, with both times; and K3 on phase
+   4's real matrices at k=40 (reconstruction within ``REAL_REC_TOL``);
+7. entry (a), the cycle of phase 3 under ``set_eigh_backend("jacobi")``
+   (K3 at k=40), held against phase 3's Newton-Schulz analysis; then warm,
+   timed;
+8. entries (b) and (c) on the full grid: ``update_points_group`` for (U, V)
+   under ``"jacobi"`` (K3), held against phase 7's columns; and
+   ``update_points`` for T on a 41-member ensemble under ``"jacobi"`` (K4)
+   and under ``"auto"`` (K1 at k=41), held against each other.
 
-The last two lines of standard output are the kernel record and the device
-record, each one JSON object.  The port is imported from this directory, so
-the script fails when run alone, and it fails without a card.
+Every path is driven with the launch counts set to 0 just before it and
+read just after; the launches made to compare a kernel with its plain
+version are not counted.  The last three lines of standard output are the
+kernel record (one JSON object), the card's name and power limit, and the
+device record (one JSON object).  The port is imported from this directory,
+so the script fails when run alone, and it fails without a card.
 """
 import json
 import statistics
@@ -33,6 +57,7 @@ import torch
 
 SEED = 0
 K = 40
+K_ODD = 41                  # entry (c): the sequential Jacobi kernel, K4
 GRID = (128, 128, 20)       # 327,680 points at dx = 10 km
 DX_M = 10e3
 N_VARS = 16
@@ -56,8 +81,42 @@ PLATFORMS = (("synop", 2000, 5, 100, 0.5), ("vr", 20000, 1, 300, 1.0),
 MULTI_INFL = tuple(1.1 if i >= 4 else 1.6 for i in range(N_VARS))
 RTPP = RTPS = 0.95
 NS_TOL = 1e-4
-KERNEL_SOURCE = "cwbnwp_letkf_torch/csrc/ns_invsqrt.cu"
-REPLACES = "cwbnwp_letkf_tpu/ops/pallas_ns.py:109"
+#: (batch, k) of the kernel checks: the main paths' per-launch shapes first
+NS_SHAPES = ((12288, K), (2048, 96))
+JACOBI_SHAPES = {"jacobi_parallel": ((4096, K), (2048, 96)),
+                 "jacobi_cyclic": ((4096, K_ODD), (512, 9))}
+#: an analysis held against another solve of the same normal matrices
+#: (tests/test_torch_cycle.py:72-73, tests/test_cycle.py:109-112), relative
+#: to the reference's analysis increment ``max|xa_ref - xb|``: the synthetic
+#: field sits on a 290 offset, so ``max|xa|`` would scale the limit by the
+#: offset, not by what the solve moves
+XA_RTOL = 5e-4
+#: K3's polished reconstruction bound on phase 4's real first-chunk
+#: matrices, in max|A|: seven sweeps leave 4.6e-5 there, above the 3e-5 of
+#: tests/test_pallas_eigh.py's synthetic inputs (the TPU kernel's algorithm;
+#: the kernel equals its plain version bit for bit)
+REAL_REC_TOL = 1e-4
+#: the eigen solves of phase 4's control: (label, sweeps, polish)
+EIGH_CONTROLS = (("7 sweeps + polish (the path)", 7, True),
+                 ("8 sweeps + polish", 8, True),
+                 ("7 sweeps, no polish", 7, False),
+                 ("6 sweeps + polish", 6, True),
+                 ("5 sweeps + polish", 5, True),
+                 ("4 sweeps + polish", 4, True),
+                 ("3 sweeps + polish", 3, True))
+#: the control the limit must fail: 9x over it on the bench case
+SHORT_CONTROL = "4 sweeps + polish"
+#: name -> (route, source, the TPU kernel it replaces)
+KERNELS = {
+    "ns_invsqrt": ("cuda", "cwbnwp_letkf_torch/csrc/ns_invsqrt.cu",
+                   "cwbnwp_letkf_tpu/ops/pallas_ns.py:109"),
+    "ns_invsqrt_rmul": ("cuda", "cwbnwp_letkf_torch/csrc/ns_invsqrt.cu",
+                        "cwbnwp_letkf_tpu/ops/pallas_ns.py:268"),
+    "jacobi_parallel": ("cuda", "cwbnwp_letkf_torch/csrc/jacobi_eigh.cu",
+                        "cwbnwp_letkf_tpu/ops/pallas_eigh.py:144"),
+    "jacobi_cyclic": ("cuda", "cwbnwp_letkf_torch/csrc/jacobi_eigh.cu",
+                      "cwbnwp_letkf_tpu/ops/pallas_eigh.py:76"),
+}
 
 
 def check(ok, what):
@@ -81,6 +140,34 @@ def median_ms(fn, reps=5):
     return statistics.median(times)
 
 
+def reset_counts():
+    from cwbnwp_letkf_torch.ops import eigh_kernel, ns_kernel
+
+    for counts in (ns_kernel.LAUNCHES, eigh_kernel.LAUNCHES):
+        for key in counts:
+            counts[key] = 0
+
+
+def read_counts():
+    """Launches per kernel since the last :func:`reset_counts`."""
+    from cwbnwp_letkf_torch.ops import eigh_kernel, ns_kernel
+
+    torch.cuda.synchronize()
+    return {"ns_invsqrt": ns_kernel.LAUNCHES["trio"],
+            "ns_invsqrt_rmul": ns_kernel.LAUNCHES["rmul"],
+            "jacobi_parallel": eigh_kernel.LAUNCHES["parallel"],
+            "jacobi_cyclic": eigh_kernel.LAUNCHES["cyclic"]}
+
+
+def check_only(counts, name, expected, what):
+    """``name`` launched ``expected`` times in the path, no other kernel."""
+    print(f"  {what}: kernel launches {counts}")
+    check(counts[name] == expected,
+          f"{what}: {counts[name]} {name} launches, expected {expected}")
+    check(all(n == 0 for key, n in counts.items() if key != name),
+          f"{what}: other kernels launched: {counts}")
+
+
 def normal_matrices(rng, b, k, dev):
     """``Y Y^T`` with ``Y`` ``[b, k, 2k]`` of N(0, 0.5^2) entries."""
     y = torch.from_numpy(
@@ -97,23 +184,24 @@ def ill_conditioned_matrices(rng, b, k, dev, n=300):
     return y @ y.transpose(1, 2)
 
 
-def compare_kernel(a, inflat, label):
+def compare_kernel(a, inflat, label, packing="trio"):
     """Kernel vs plain on one batch, with the CPU tests' tolerances.
 
     ``max|Z A Z - I|`` (float64) below ``max(5e-4, 20 kappa 1.2e-7)``, the
     float32 floor of the iteration (tests/test_ns_solver.py:115), and Z
     within ``max(2e-4, 20 kappa 1.2e-7) max|Z|`` of the plain version: 2e-4
     (tests/test_ns_solver.py:256-258) below kappa ~ 83, the same float32
-    floor above, since the kernel runs the map in another form (it tracks
-    ``W = ZY``, not ``Y``).  Against the float64 eigh solution the kernel's
-    Z must also be no worse than twice the plain version's error (or
-    ``2e-4 max|Z|``).  Returns ``max|dZ|``.
+    floor above, since the kernel stops each matrix on its own (and K1
+    tracks ``W = ZY``, not ``Y``).  Against the float64 eigh solution the
+    kernel's Z must also be no worse than twice the plain version's error
+    (or ``2e-4 max|Z|``).  ``packing="rmul"`` checks K2 against
+    ``ns_invsqrt_rmul`` and also against K1's Z.  Returns ``max|dZ|``.
     """
     from cwbnwp_letkf_torch.ops import ns_kernel, solver
 
-    z, iters, resid = ns_kernel.launch(a, inflat)
-    z_plain, iters_plain, err_plain = solver.ns_invsqrt(a, inflat,
-                                                        return_info=True)
+    plain = solver.ns_invsqrt_rmul if packing == "rmul" else solver.ns_invsqrt
+    z, iters, resid = ns_kernel.launch(a, inflat, packing=packing)
+    z_plain, iters_plain, err_plain = plain(a, inflat, return_info=True)
     k = a.shape[-1]
     eye = torch.eye(k, dtype=torch.float64, device=a.device)
     a64 = a.double() + inflat * eye
@@ -132,7 +220,7 @@ def compare_kernel(a, inflat, label):
     res_tol = max(5e-4, floor)
     dz = float((z - z_plain).abs().max())
     dz_tol = max(2e-4, floor) * float(z_plain.abs().max())
-    print(f"  {label}: kappa_max {kappa:.1f}  iters kernel max "
+    print(f"  {label} ({packing}): kappa_max {kappa:.1f}  iters kernel max "
           f"{int(iters.max())} mean {float(iters.float().mean()):.3f}, plain "
           f"{iters_plain}  NS residual kernel {float(resid.max()):.3e}, plain "
           f"{float(err_plain):.3e}  max|ZAZ-I| kernel {res:.3e}, plain "
@@ -146,31 +234,39 @@ def compare_kernel(a, inflat, label):
     # and no less accurate than the plain version, against float64 eigh
     check(err_true <= max(2 * err_true_plain, 2e-4 * float(z_true.abs().max())),
           f"{label}: kernel Z error {err_true} vs plain {err_true_plain}")
+    if packing == "rmul":
+        z_trio, _, _ = ns_kernel.launch(a, inflat)
+        d_trio = float((z - z_trio).abs().max())
+        print(f"    max|Z_rmul - Z_trio| {d_trio:.3e} (tol {dz_tol:.3e})")
+        check(d_trio <= dz_tol, f"{label}: K2 and K1 differ by {d_trio}")
     return dz
 
 
-def phase_kernel(dev, rng):
-    """Phase 2: returns (max|dZ|, kernel ms, plain ms) at the main path's shape."""
+def phase_kernel(dev, rng, packing="trio"):
+    """Phases 2 and 5: returns (max|dZ|, kernel ms, plain ms) at the main
+    path's shape."""
     from cwbnwp_letkf_torch.ops import ns_kernel, solver
 
+    plain = solver.ns_invsqrt_rmul if packing == "rmul" else solver.ns_invsqrt
     worst = 0.0
     times = {}
-    for b, k in ((12288, K), (2048, 96)):
+    for b, k in NS_SHAPES:
         inflat = (k - 1) / 1.1
         a = normal_matrices(rng, b, k, dev)
-        worst = max(worst, compare_kernel(a, inflat, f"normal [{b},{k},{k}]"))
+        worst = max(worst, compare_kernel(a, inflat, f"normal [{b},{k},{k}]",
+                                          packing))
         ill = ill_conditioned_matrices(rng, b // 8, k, dev)
-        worst = max(worst, compare_kernel(ill, inflat,
-                                          f"ill-conditioned [{b // 8},{k},{k}]"))
-        ms = median_ms(lambda: ns_kernel.launch(a, inflat))
-        plain_ms = median_ms(lambda: solver.ns_invsqrt(a, inflat))
+        worst = max(worst, compare_kernel(
+            ill, inflat, f"ill-conditioned [{b // 8},{k},{k}]", packing))
+        ms = median_ms(lambda: ns_kernel.launch(a, inflat, packing=packing))
+        plain_ms = median_ms(lambda: plain(a, inflat))
         times[k] = (ms, plain_ms)
-        print(f"  [{b},{k},{k}] kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
-              f"  (median of 5 warm runs, CUDA events)")
-    return worst, times[K][0], times[K][1]
+        print(f"  [{b},{k},{k}] {packing} kernel {ms:.4f} ms  plain "
+              f"{plain_ms:.4f} ms  (median of 5 warm runs, CUDA events)")
+    return (worst,) + times[NS_SHAPES[0][1]]
 
 
-def bench_case(rng, nz):
+def bench_case(rng, nz, k=K):
     """The bench case, built by the port's synthetic generators (numpy)."""
     from cwbnwp_letkf_torch.config import MAX_VARS
     from cwbnwp_letkf_torch.obs.base import PlatformStatic
@@ -179,7 +275,7 @@ def bench_case(rng, nz):
                                                   synthetic_gts_platform)
 
     pts = idealized_grid(GRID[0], GRID[1], nz, dx_m=DX_M)
-    truth, xb = correlated_ensemble(rng, pts, K, n_bumps=8, length_m=1.5e5)
+    truth, xb = correlated_ensemble(rng, pts, k, n_bumps=8, length_m=1.5e5)
     plats = []
     for name, nobs, nvar, cap, err in PLATFORMS:
         st0, po = synthetic_gts_platform(
@@ -224,48 +320,63 @@ def main_path(xb_v, pts_d, plats, groups, dev):
     return xa, diag, budgets, dplats, cycle_s
 
 
-def phase_slice(dev, rng, nz):
-    """Phase 3: returns what phase 4 needs and the kernel launch count."""
-    from cwbnwp_letkf_torch.ops import ns_kernel
+def rmse(x, truth):
+    return float(((x - truth) ** 2).mean().sqrt())
 
-    t0 = time.time()
-    pts, truth, xb, plats = bench_case(rng, nz)
+
+def check_rmse(xa, xb_d, truth_d, cols, what):
+    """The analysis-mean RMSE of each ``(column, name)`` below the
+    background's."""
+    rmse_b = rmse(xb_d.mean(-1), truth_d)
+    for col, name in cols:
+        rmse_a = rmse(xa[:, col].mean(-1), truth_d)
+        print(f"  {what}, column {col} ({name}): mean RMSE background "
+              f"{rmse_b:.4f} -> analysis {rmse_a:.4f}")
+        check(rmse_a < rmse_b, f"{what}, column {col}: analysis RMSE not lower")
+
+
+def check_close(xa, ref, xb, what):
+    """``max|xa - ref| <= XA_RTOL max|ref - xb|``, the gap in units of the
+    reference's analysis increment; returns ``max|xa - ref|``."""
+    diff = float((xa - ref).abs().max())
+    incr = float((ref - xb).abs().max())
+    tol = XA_RTOL * incr
+    print(f"  {what}: max|dxa| {diff:.3e} = {diff / incr:.3e} of the "
+          f"increment max|xa_ref - xb| {incr:.4f} (tol {tol:.3e})")
+    check(diff <= tol, f"{what}: max|dxa| {diff} > {tol}")
+    return diff
+
+
+def phase_slice(dev, case):
+    """Phase 3: returns what phases 4 and 7 need and the kernel launch count."""
+    pts, truth, xb, plats = case
     b = pts.shape[0]
-    print(f"  case: {b} points ({GRID[0]}x{GRID[1]}x{nz}), k={K}, {N_VARS} "
-          f"variables in {len(PROD_GROUPS)} groups, records "
-          f"{[po.nrec for _, po in plats]}; built on the host in "
-          f"{time.time() - t0:.2f} s")
     groups = cycle_groups()
     pts_d = torch.from_numpy(pts).to(dev)
     xb_d = torch.from_numpy(xb).to(dev)
+    truth_d = torch.from_numpy(truth).to(dev)
     xb_v = xb_d[:, None, :].expand(b, N_VARS, K)   # one field for all columns
 
-    torch.cuda.synchronize(dev)
-    ns_kernel.LAUNCHES = 0
+    reset_counts()
     t0 = time.time()
     xa, diag, budgets, dplats, _ = main_path(xb_v, pts_d, plats, groups, dev)
     torch.cuda.synchronize(dev)
     cold_s = time.time() - t0
-    launches = ns_kernel.LAUNCHES
+    counts = read_counts()
+    launches = counts["ns_invsqrt"]
     overflow = int(diag["bucket_overflow"])
     resid = float(diag["ns_residual"])
     print(f"  first run {cold_s:.3f} s: budgets "
           f"{ {n: tuple(bb) for n, bb in budgets.items()} }, overflow "
-          f"{overflow}, ns_residual {resid:.3e}, kernel launches {launches}")
+          f"{overflow}, ns_residual {resid:.3e}")
     check(tuple(xa.shape) == (b, N_VARS, K), f"xa shape {tuple(xa.shape)}")
     check(bool(torch.isfinite(xa).all()), "analysis not finite")
     check(overflow == 0, f"bucket overflow {overflow}")
     check(resid <= NS_TOL, f"ns_residual {resid} > {NS_TOL}")
     n_chunks = -(-b // CHUNK)
-    check(launches >= 2 * n_chunks,
-          f"{launches} kernel launches < {2 * n_chunks} (2 per chunk)")
-    truth_d = torch.from_numpy(truth).to(dev)
-    for col, name in ((0, "U"), (3, "T")):
-        rmse_b = float(((xb_d.mean(-1) - truth_d) ** 2).mean().sqrt())
-        rmse_a = float(((xa[:, col].mean(-1) - truth_d) ** 2).mean().sqrt())
-        print(f"  column {col} ({name}): mean RMSE background {rmse_b:.4f} "
-              f"-> analysis {rmse_a:.4f}")
-        check(rmse_a < rmse_b, f"column {col}: analysis RMSE not lower")
+    check_only(counts, "ns_invsqrt", 2 * n_chunks,
+               "NS cycle (2 per chunk: one per inflation value)")
+    check_rmse(xa, xb_d, truth_d, ((0, "U"), (3, "T")), "NS cycle")
     del xa
 
     torch.cuda.reset_peak_memory_stats(dev)
@@ -279,20 +390,25 @@ def phase_slice(dev, rng, nz):
           f"update_points_cycle alone {cycle_s:.3f} s, "
           f"{b * N_VARS / cycle_s:.1f} var-point updates/s; peak device "
           f"memory {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
-    return pts_d, dplats, groups, budgets, launches
+    return pts_d, xb_d, truth_d, xa, dplats, groups, budgets, launches
 
 
 def phase_real(pts_d, dplats, groups, budgets):
-    """Phase 4: the kernel on the real normal matrices of the first chunk."""
+    """Phase 4: the kernel on the real normal matrices of the first chunk.
+
+    Returns ``(max|dZ|, [(stack, inflat)], (rows, a, g, count))``, one stack
+    per inflation value, and the chunk's point rows and normal terms.
+    """
     from cwbnwp_letkf_torch.ops import cycle
 
     plans = cycle._resolve_plans(dplats, groups, max_blocks=budgets)
     perm = cycle._cycle_point_perm(pts_d, plans)
-    a, _, cnt, ovf = cycle.accumulate_chunk(
+    a, g, cnt, ovf = cycle.accumulate_chunk(
         pts_d[perm[:CHUNK]], plans, groups, k=K, weight_function=0,
         subchunk=SUBCHUNK)
     check(int(ovf) == 0, "overflow in the first chunk")
     worst = 0.0
+    stacks = []
     for val in sorted({v for grp in groups for v in grp.inflats}):
         members = [gi for gi, grp in enumerate(groups) if val in grp.inflats]
         stack = torch.cat([a[gi] for gi in members])
@@ -300,7 +416,291 @@ def phase_real(pts_d, dplats, groups, budgets):
         worst = max(worst, compare_kernel(
             stack, val, f"first chunk, inflat {val:.4f}, {stack.shape[0]} "
                         f"matrices ({with_obs} with obs)"))
-    return worst
+        stacks.append((stack, val))
+    return worst, stacks, (perm[:CHUNK], a, g, cnt)
+
+
+def phase_eigh_control(first, xb_d, groups):
+    """Phase 4, second part: the first chunk's analysis, per group with
+    obs, through the Jacobi solve at ``EIGH_CONTROLS``' precisions and
+    through K1, each against float64 ``torch.linalg.eigh``, in units of the
+    analysis increment ``max|xa_ref - xb|`` over all groups.  The path's
+    Jacobi solve and K1 must meet ``XA_RTOL``; the controls show what a
+    less accurate eigen solve reads at that scale, and the limit must see a
+    solve three sweeps short (``SHORT_CONTROL``).  Returns
+    ``{label: gap / increment}``.
+    """
+    from cwbnwp_letkf_torch.ops import solver
+    from cwbnwp_letkf_torch.ops.jacobi_eigh import jacobi_eigh
+
+    rows, a, g, cnt = first
+    xb = xb_d[rows]
+    f64 = torch.float64
+    eye = torch.eye(K, device=xb.device)
+    gaps = {label: 0.0 for label, _, _ in EIGH_CONTROLS}
+    gaps["Newton-Schulz, K1"] = 0.0
+    incr = 0.0
+    for gi, grp in enumerate(groups):
+        has = cnt[gi] > 0
+        if not bool(has.any()):
+            continue
+        a_g, g_g, xb_g = a[gi][has], g[gi][has], xb[has]
+        val = grp.inflats[0]
+        lam, v = torch.linalg.eigh(a_g.double() + val * eye.double())
+        ref = solver.apply_weight_factors(lam, v, g_g.double(), xb_g.double(),
+                                          solver_dtype=f64)
+        incr = max(incr, float((ref - xb_g.double()).abs().max()))
+        for label, sweeps, polish in EIGH_CONTROLS:
+            lam, v = jacobi_eigh(a_g + val * eye, sweeps=sweeps, polish=polish)
+            xa = solver.apply_weight_factors(lam, v, g_g, xb_g)
+            gaps[label] = max(gaps[label], float((xa.double() - ref).abs().max()))
+        z, _ = solver._ns_z(a_g, val)
+        xa = solver._apply_z(z, g_g, xb_g)
+        gaps["Newton-Schulz, K1"] = max(gaps["Newton-Schulz, K1"],
+                                        float((xa.double() - ref).abs().max()))
+    print(f"  first chunk, {len(groups)} groups: analysis increment "
+          f"max|xa_f64 - xb| {incr:.4f}, limit XA_RTOL {XA_RTOL:.0e} of it")
+    for label, gap in gaps.items():
+        print(f"    {label}: max|xa - xa_f64| {gap:.3e} = {gap / incr:.3e} of "
+              f"the increment ({gap / (XA_RTOL * incr):.3f} of the limit)")
+    for label in (EIGH_CONTROLS[0][0], "Newton-Schulz, K1"):
+        check(gaps[label] <= XA_RTOL * incr,
+              f"first chunk, {label}: {gaps[label]} off float64")
+    check(gaps[SHORT_CONTROL] > XA_RTOL * incr,
+          f"first chunk, {SHORT_CONTROL}: {gaps[SHORT_CONTROL]} off float64 "
+          f"passes the limit, which therefore cannot see it")
+    return {label: gap / incr for label, gap in gaps.items()}
+
+
+def phase_rmul(dev, stacks):
+    """Phase 5: K2's entry point on the real matrices, then K2 against its
+    plain version and K1 on phase 2's sets.  Returns (launches, max|dZ|,
+    ms, plain ms)."""
+    from cwbnwp_letkf_torch.ops import ns_kernel
+
+    reset_counts()
+    outs = [ns_kernel.ns_invsqrt_cuda(stack, val, packing="rmul")
+            for stack, val in stacks]
+    counts = read_counts()
+    check_only(counts, "ns_invsqrt_rmul", len(stacks),
+               "ns_invsqrt_cuda(packing='rmul') on the first chunk's stacks")
+    eye = torch.eye(K, dtype=torch.float64, device=dev)
+    for (stack, val), (z, iters, resid) in zip(stacks, outs):
+        a64 = stack.double() + val * eye
+        lam = torch.linalg.eigvalsh(a64)
+        res_tol = max(5e-4, 20 * float((lam[:, -1] / lam[:, 0]).max()) * 1.2e-7)
+        z = z.double()
+        res = float((z @ a64 @ z - eye).abs().max())
+        print(f"    inflat {val:.4f}: {int(iters)} steps at most, residual "
+              f"{float(resid):.3e}, max|ZAZ-I| {res:.3e} (tol {res_tol:.1e})")
+        check(float(resid) <= NS_TOL and res < res_tol,
+              f"K2 on the real stack at inflat {val}: residual {float(resid)}, "
+              f"max|ZAZ-I| {res}")
+    err, ms, plain_ms = phase_kernel(dev, np.random.default_rng(SEED + 1),
+                                     packing="rmul")
+    return counts["ns_invsqrt_rmul"], err, ms, plain_ms
+
+
+def reconstruction(lam, v, a):
+    """``max|V diag(lam) V^T - A| / max|A|`` in float64."""
+    lam, v, a64 = lam.double(), v.double(), a.double()
+    return float(((v * lam[:, None, :]) @ v.transpose(1, 2) - a64).abs().max()
+                 / a64.abs().max())
+
+
+def compare_jacobi(a, label, timed=True, rec_tol=3e-5):
+    """K3/K4 against its plain version on one batch; returns (max|d|, kernel
+    ms, plain ms), the times None unless ``timed``.
+
+    The raw sweeps' eigenvalues element by element (the same order) and
+    eigenvectors; then, on the wrapper's polished output, the tolerances of
+    tests/test_pallas_eigh.py:28-35: ``max|V diag(lam) V^T - A| <= rec_tol
+    max|A|`` (3e-5 there), ``max|V^T V - I| <= 1e-5`` and sorted ``lam``
+    against float64 eigenvalues at rtol 1e-4.
+    """
+    from cwbnwp_letkf_torch.ops import eigh_kernel
+    from cwbnwp_letkf_torch.ops.jacobi_eigh import (jacobi_cyclic, jacobi_eigh,
+                                                    jacobi_parallel)
+
+    b, k, _ = a.shape
+    name = eigh_kernel.kernel_for(k)
+    plain = jacobi_parallel if name == "parallel" else jacobi_cyclic
+    lam, v = eigh_kernel.launch(a)
+    lam_p, v_p = plain(a)
+    scale = float(a.abs().max())
+    d_lam = float((lam - lam_p).abs().max())
+    d_v = float((v - v_p).abs().max())
+    lam_tol = (1e-4 * lam_p.abs() + 3e-5 * scale)
+    lam_w, v_w = jacobi_eigh(a)
+    rec = reconstruction(lam_w, v_w, a)
+    lam_w, v_w, a64 = lam_w.double(), v_w.double(), a.double()
+    orth = float((v_w.transpose(1, 2) @ v_w
+                  - torch.eye(k, dtype=torch.float64, device=a.device))
+                 .abs().max())
+    ref = torch.linalg.eigvalsh(a64.cpu())
+    d_sorted = (torch.sort(lam_w.cpu(), -1).values - ref).abs()
+    sorted_ok = bool((d_sorted <= 1e-4 * ref.abs() + 3e-5 * scale).all())
+    print(f"  {label} ({name}): max|dlam| {d_lam:.3e}, max|dV| {d_v:.3e} vs "
+          f"plain; polished: reconstruction {rec:.3e} max|A| (tol "
+          f"{rec_tol:.0e}), orthogonality {orth:.3e} (tol 1e-5), sorted lam vs f64 "
+          f"max|d| {float(d_sorted.max()):.3e}")
+    check(bool(torch.isfinite(lam).all() and torch.isfinite(v).all()),
+          f"{label}: kernel output not finite")
+    check(bool(((lam - lam_p).abs() <= lam_tol).all()),
+          f"{label}: kernel and plain eigenvalues differ by {d_lam}")
+    check(rec <= rec_tol, f"{label}: reconstruction {rec} max|A|")
+    check(orth <= 1e-5, f"{label}: orthogonality {orth}")
+    check(sorted_ok, f"{label}: eigenvalues off float64 by "
+                     f"{float(d_sorted.max())}")
+    if not timed:
+        return max(d_lam, d_v), None, None
+    ms = median_ms(lambda: eigh_kernel.launch(a))
+    plain_ms = median_ms(lambda: plain(a))
+    print(f"  [{b},{k},{k}] {name} kernel {ms:.4f} ms  plain {plain_ms:.4f} "
+          f"ms  (median of 5 warm runs, CUDA events)")
+    return max(d_lam, d_v), ms, plain_ms
+
+
+def phase_jacobi(dev, rng, stacks):
+    """Phase 6: returns {kernel: (max|d|, ms, plain ms)} at the main paths'
+    shapes, the solver's ``A = Y Y^T + inflat I``; K3 also on phase 4's
+    real ``[(a_obs stack, inflat)]``, untimed, within ``REAL_REC_TOL``."""
+    from cwbnwp_letkf_torch.ops.jacobi_eigh import jacobi_eigh
+
+    out = {}
+    for name, shapes in JACOBI_SHAPES.items():
+        worst = 0.0
+        for b, k in shapes:
+            a = normal_matrices(rng, b, k, dev)
+            a += (k - 1) / 1.6 * torch.eye(k, device=dev)
+            d, ms, plain_ms = compare_jacobi(a, f"[{b},{k},{k}]")
+            worst = max(worst, d)
+            if (b, k) == shapes[0]:
+                out[name] = (ms, plain_ms)
+        if name == "jacobi_parallel":
+            eye = torch.eye(K, device=dev)
+            for stack, val in stacks:
+                a = stack + val * eye
+                d, _, _ = compare_jacobi(
+                    a, f"first chunk, inflat {val:.4f}, "
+                    f"[{stack.shape[0]},{K},{K}]", timed=False,
+                    rec_tol=REAL_REC_TOL)
+                worst = max(worst, d)
+                print(f"    with 8 sweeps: reconstruction "
+                      f"{reconstruction(*jacobi_eigh(a, sweeps=8), a):.3e} "
+                      f"max|A|")
+        out[name] = (worst,) + out[name]
+    return out
+
+
+def phase_jacobi_cycle(dev, pts_d, xb_d, truth_d, xa_ns, plats):
+    """Phase 7: entry (a); returns (xa, K3 launches)."""
+    from cwbnwp_letkf_torch.ops import solver
+
+    b = pts_d.shape[0]
+    groups = cycle_groups()
+    xb_v = xb_d[:, None, :].expand(b, N_VARS, K)
+    solver.set_eigh_backend("jacobi")
+    try:
+        reset_counts()
+        t0 = time.time()
+        xa, diag, _, _, _ = main_path(xb_v, pts_d, plats, groups, dev)
+        torch.cuda.synchronize(dev)
+        first_s = time.time() - t0
+        counts = read_counts()
+        overflow = int(diag["bucket_overflow"])
+        print(f"  first run {first_s:.3f} s: overflow {overflow}, ns_residual "
+              f"{float(diag['ns_residual']):.3e}")
+        check(bool(torch.isfinite(xa).all()), "Jacobi analysis not finite")
+        check(overflow == 0, f"bucket overflow {overflow}")
+        n_chunks = -(-b // CHUNK)
+        check_only(counts, "jacobi_parallel", len(groups) * n_chunks,
+                   "Jacobi cycle (one per group and chunk)")
+        check_rmse(xa, xb_d, truth_d, ((0, "U"), (3, "T")), "Jacobi cycle")
+        check_close(xa, xa_ns, xb_v, "Jacobi cycle vs NS cycle")
+        t0 = time.time()
+        xa_w, _, _, _, cycle_s = main_path(xb_v, pts_d, plats, groups, dev)
+        torch.cuda.synchronize(dev)
+        wall = time.time() - t0
+        check(torch.equal(xa_w, xa), "Jacobi cycle not deterministic")
+        del xa_w
+        print(f"  warm run: wall {wall:.3f} s (prepare -> plan -> cycle -> "
+              f"tune_q), {b * N_VARS / wall:.1f} var-point updates/s; "
+              f"update_points_cycle alone {cycle_s:.3f} s, "
+              f"{b * N_VARS / cycle_s:.1f} var-point updates/s")
+    finally:
+        solver.set_eigh_backend("auto")
+    return xa, counts["jacobi_parallel"]
+
+
+def phase_updates(dev, pts_d, xb_d, xa_jac, dplats, nz):
+    """Phase 8: entries (b) and (c); returns the K4 launch count."""
+    from cwbnwp_letkf_torch.ops import solver, update
+
+    b = pts_d.shape[0]
+    n_chunks = -(-b // CHUNK)
+    ivars = (0, 1)
+    solver.set_eigh_backend("jacobi")
+    try:
+        budgets = update.plan_max_blocks(pts_d, dplats, ivars[0], chunk=CHUNK)
+        reset_counts()
+        t0 = time.time()
+        xa, diag = update.update_points_group(
+            xb_d[:, None, :].expand(b, len(ivars), K), pts_d, dplats, ivars,
+            inflats=tuple((K - 1) / MULTI_INFL[iv] for iv in ivars),
+            weight_function=0, rtpp_alpha=(RTPP,) * 2, rtps_alpha=(RTPS,) * 2,
+            chunk=CHUNK, max_blocks=budgets, return_diagnostics=True)
+        torch.cuda.synchronize(dev)
+        print(f"  (b) update_points_group (U, V), k={K}, jacobi: "
+              f"{time.time() - t0:.3f} s, budgets "
+              f"{ {n: tuple(bb) for n, bb in budgets.items()} }, overflow "
+              f"{int(diag['bucket_overflow'])}")
+        check_only(read_counts(), "jacobi_parallel", n_chunks,
+                   "(b) group update (one per chunk)")
+        check(int(diag["bucket_overflow"]) == 0, "(b): bucket overflow")
+        check(bool(torch.isfinite(xa).all()), "(b): analysis not finite")
+        check_close(xa, xa_jac[:, :2], xb_d[:, None, :],
+                    "(b) vs the Jacobi cycle's U, V")
+        del xa
+    finally:
+        solver.set_eigh_backend("auto")
+
+    pts, truth, xb, plats = bench_case(np.random.default_rng(SEED), nz,
+                                       k=K_ODD)
+    q = torch.from_numpy(pts).to(dev)
+    xb41 = torch.from_numpy(xb).to(dev)
+    truth41 = torch.from_numpy(truth).to(dev)
+    dplats41 = [update.prepare_platform(st, po, device=dev) for st, po in plats]
+    ivar = 3
+    budgets = update.plan_max_blocks(q, dplats41, ivar, chunk=CHUNK)
+    kw = dict(inflat=(K_ODD - 1) / MULTI_INFL[ivar], weight_function=0,
+              use_rtpp=True, rtpp_alpha=RTPP, use_rtps=True, rtps_alpha=RTPS,
+              chunk=CHUNK, max_blocks=budgets, return_diagnostics=True)
+    out = {}
+    for backend, name in (("jacobi", "jacobi_cyclic"), ("auto", "ns_invsqrt")):
+        solver.set_eigh_backend(backend)
+        try:
+            reset_counts()
+            t0 = time.time()
+            xa, diag = update.update_points(xb41, q, dplats41, ivar, **kw)
+            torch.cuda.synchronize(dev)
+            print(f"  (c) update_points T, k={K_ODD}, {backend}: "
+                  f"{time.time() - t0:.3f} s, overflow "
+                  f"{int(diag['bucket_overflow'])}, ns_residual "
+                  f"{float(diag['ns_residual']):.3e}")
+            counts = read_counts()
+            check_only(counts, name, n_chunks, f"(c) {backend} (one per chunk)")
+        finally:
+            solver.set_eigh_backend("auto")
+        check(int(diag["bucket_overflow"]) == 0, f"(c) {backend}: overflow")
+        check(bool(torch.isfinite(xa).all()), f"(c) {backend}: not finite")
+        rmse_b, rmse_a = rmse(xb41.mean(-1), truth41), rmse(xa.mean(-1), truth41)
+        print(f"  (c) {backend}: T mean RMSE background {rmse_b:.4f} -> "
+              f"analysis {rmse_a:.4f}")
+        check(rmse_a < rmse_b, f"(c) {backend}: analysis RMSE not lower")
+        out[backend] = (xa, counts[name])
+    check_close(out["jacobi"][0], out["auto"][0], xb41, "(c) K4 vs K1")
+    return out["jacobi"][1]
 
 
 def main():
@@ -308,6 +708,7 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
+    t_start = time.time()
     print("phase 0: device")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -317,30 +718,64 @@ def main():
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s)")
 
-    from cwbnwp_letkf_torch.ops import ns_kernel
+    from cwbnwp_letkf_torch.ops import cuda_build, eigh_kernel, ns_kernel
 
     print("phase 1: build")
     t0 = time.time()
-    lib = ns_kernel.build()
-    print(f"  built {lib.name} in {time.time() - t0:.2f} s")
-    print("  " + lib.with_suffix(".log").read_text().strip().replace("\n", "\n  "))
+    libs = cuda_build.build(ns_kernel.SOURCE, eigh_kernel.SOURCE)
+    print(f"  built {[lib.name for lib in libs]} in {time.time() - t0:.2f} s")
+    for lib in libs:
+        print("  " + lib.with_suffix(".log").read_text().strip()
+              .replace("\n", "\n  "))
 
+    record = {}
     with torch.inference_mode():
-        print("phase 2: kernel vs plain")
+        print("phase 2: K1 vs plain")
         err2, ms, plain_ms = phase_kernel(dev, np.random.default_rng(SEED + 1))
 
         print("phase 3: slice")
+        t0 = time.time()
         # the bench case's own seed: the same arrays as bench.py:71-112
-        pts_d, dplats, groups, budgets, launches = phase_slice(
-            dev, np.random.default_rng(SEED), GRID[2])
+        case = bench_case(np.random.default_rng(SEED), GRID[2])
+        print(f"  case: {case[0].shape[0]} points ({GRID[0]}x{GRID[1]}x"
+              f"{GRID[2]}), k={K}, {N_VARS} variables in {len(PROD_GROUPS)} "
+              f"groups, records {[po.nrec for _, po in case[3]]}; built on "
+              f"the host in {time.time() - t0:.2f} s")
+        pts_d, xb_d, truth_d, xa_ns, dplats, groups, budgets, launches = \
+            phase_slice(dev, case)
 
-        print("phase 4: real normal matrices")
-        err4 = phase_real(pts_d, dplats, groups, budgets)
+        print("phase 4: K1 on real normal matrices; eigen-solve controls")
+        err4, stacks, first = phase_real(pts_d, dplats, groups, budgets)
+        record["ns_invsqrt"] = (launches, max(err2, err4), ms, plain_ms)
+        phase_eigh_control(first, xb_d, groups)
+        del first
 
-    print(json.dumps({"kernels": [{
-        "name": "ns_invsqrt", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": launches,
-        "max_abs_err": max(err2, err4), "ms": ms, "plain_ms": plain_ms}]}))
+        print("phase 5: K2")
+        record["ns_invsqrt_rmul"] = phase_rmul(dev, stacks)
+
+        print("phase 6: K3 and K4 vs plain")
+        jac = phase_jacobi(dev, np.random.default_rng(SEED + 2), stacks)
+        del stacks
+
+        print("phase 7: entry (a), the Jacobi cycle")
+        xa_jac, launches3 = phase_jacobi_cycle(dev, pts_d, xb_d, truth_d,
+                                               xa_ns, case[3])
+        del xa_ns
+        record["jacobi_parallel"] = (launches3,) + jac["jacobi_parallel"]
+
+        print("phase 8: entries (b) and (c)")
+        launches4 = phase_updates(dev, pts_d, xb_d, xa_jac, dplats, GRID[2])
+        record["jacobi_cyclic"] = (launches4,) + jac["jacobi_cyclic"]
+    print(f"all phases passed in {time.time() - t_start:.1f} s")
+
+    kernels = []
+    for name, (route, source, replaces) in KERNELS.items():
+        n, err, kms, pms = record[name]
+        check(n > 0, f"{name} was not launched by its path")
+        kernels.append({"name": name, "route": route, "source": source,
+                        "replaces": replaces, "launches": n,
+                        "max_abs_err": err, "ms": kms, "plain_ms": pms})
+    print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,20 +1,31 @@
 // Batched coupled Newton-Schulz inverse square root for the LETKF solve.
 //
-// Replaces the TPU kernel cwbnwp_letkf_tpu/ops/pallas_ns.py::_ns_kernel.
-// For each k x k matrix a (the whitened normal matrix a_obs):
+// Replaces the TPU kernels cwbnwp_letkf_tpu/ops/pallas_ns.py::_ns_kernel
+// (K1, "trio") and ::_ns_kernel_rmul (K2, "rmul"), as two compile-time
+// variants of one kernel.  For each k x k matrix a (the whitened normal
+// matrix a_obs):
 //
 //   A   = a + inflat * I,   c = max_i sum_j |A_ij| / 1.9   (floored at FLT_MIN)
 //   W_0 = A / c,            Z_0 = I
-//   repeat   r = max |W - I|,   T = (3I - W) / 2,   Z <- T Z,   W <- T (T W)
+//   repeat   r = max |W - I|,   T = (3I - W) / 2,
+//            trio:  Z <- T Z,   W <- T (T W)
+//            rmul:  U = W T,    Z <- Z T,   W <- U T
 //   until    r <= tol   or   max_iters steps
 //   z   = Z / sqrt(c)
 //
-// and writes that matrix's step count and last r.  This is the stopping rule
-// of the plain PyTorch version (ops/solver.py::ns_invsqrt), applied to each
-// matrix on its own: the step after r first drops to tol is still taken, so
-// the returned Z is one quadratic step better than r certifies.  The TPU
-// kernel stopped a block of matrices on the residual after a step, and the
-// plain version stops on the batch maximum; the three differ only below tol.
+// Every iterate is a polynomial in A, so W, Z and T commute and the two
+// variants agree in exact arithmetic; they differ in which operand each
+// product takes from the left, hence in float32 rounding.  On the TPU rmul
+// let one block-diagonal T serve as the shared matrix-unit weight; here both
+// are the same three shared-memory products.
+//
+// The kernel writes each matrix's step count and last r.  This is the
+// stopping rule of the plain PyTorch versions (ops/solver.py::ns_invsqrt and
+// ::ns_invsqrt_rmul), applied to each matrix on its own: the step after r
+// first drops to tol is still taken, so the returned Z is one quadratic step
+// better than r certifies.  The TPU kernels stopped a block of matrices on
+// the residual after a step, and the plain versions stop on the batch
+// maximum; the three rules differ only below tol.
 //
 // What bounds it on this card: a step costs 3 k^3 FMAs per matrix, while the
 // whole solve moves 8 k^2 bytes of device memory (A in, Z out).  The kernel
@@ -24,11 +35,11 @@
 //     shared memory, padded to kp = k rounded up to 8 with zero rows and
 //     columns (4 kp^2 floats: 147 KB at k = 96, so the launch opts in to
 //     dynamic shared memory above 48 KB);
-//   - T is never stored: T X = 1.5 X - 0.5 W X, and zero padding in W and X
-//     stays exactly zero through every product;
+//   - T is never stored: T X = 1.5 X - 0.5 W X and X T = 1.5 X - 0.5 X W,
+//     and zero padding in W and X stays exactly zero through every product;
 //   - each thread accumulates an 8-row strip of one output column, so a row
-//     segment of W is one warp-wide broadcast per 8 outputs and X is read
-//     row-contiguously across the warp;
+//     segment of the left operand is one warp-wide broadcast per 8 outputs
+//     and the right operand is read row-contiguously across the warp;
 //   - plain FP32 FMA on the CUDA cores: no tensor cores, no TF32;
 //   - the stopping test is a block-wide max reduction of |W - I|.
 #include <cuda_runtime.h>
@@ -65,38 +76,40 @@ __device__ float block_max(float v, float* red) {
   return out;
 }
 
-// out = T x = 1.5 x - 0.5 w x for kp x kp row-major matrices (ld = kp).
-__device__ void t_times(const float* __restrict__ w, const float* __restrict__ x,
-                        float* __restrict__ out, int kp) {
+// out = 1.5 x - 0.5 l r for kp x kp row-major matrices (ld = kp), where x is
+// l or r: with l = W it is T r, with r = W it is l T.
+__device__ void half_step(const float* __restrict__ l, const float* __restrict__ r,
+                          const float* __restrict__ x, float* __restrict__ out, int kp) {
   const int n_strips = (kp / kRows) * kp;
   for (int s = threadIdx.x; s < n_strips; s += blockDim.x) {
     const int i0 = (s / kp) * kRows;
     const int j = s % kp;
     float acc[kRows];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-    for (int l = 0; l < kp; l += 4) {
-      const float x0 = x[(l + 0) * kp + j];
-      const float x1 = x[(l + 1) * kp + j];
-      const float x2 = x[(l + 2) * kp + j];
-      const float x3 = x[(l + 3) * kp + j];
+    for (int row = 0; row < kRows; ++row) acc[row] = 0.f;
+    for (int m = 0; m < kp; m += 4) {
+      const float r0 = r[(m + 0) * kp + j];
+      const float r1 = r[(m + 1) * kp + j];
+      const float r2 = r[(m + 2) * kp + j];
+      const float r3 = r[(m + 3) * kp + j];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 wv = *reinterpret_cast<const float4*>(&w[(i0 + r) * kp + l]);
-        acc[r] = fmaf(wv.x, x0, acc[r]);
-        acc[r] = fmaf(wv.y, x1, acc[r]);
-        acc[r] = fmaf(wv.z, x2, acc[r]);
-        acc[r] = fmaf(wv.w, x3, acc[r]);
+      for (int row = 0; row < kRows; ++row) {
+        const float4 lv = *reinterpret_cast<const float4*>(&l[(i0 + row) * kp + m]);
+        acc[row] = fmaf(lv.x, r0, acc[row]);
+        acc[row] = fmaf(lv.y, r1, acc[row]);
+        acc[row] = fmaf(lv.z, r2, acc[row]);
+        acc[row] = fmaf(lv.w, r3, acc[row]);
       }
     }
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int idx = (i0 + r) * kp + j;
-      out[idx] = 1.5f * x[idx] - 0.5f * acc[r];
+    for (int row = 0; row < kRows; ++row) {
+      const int idx = (i0 + row) * kp + j;
+      out[idx] = 1.5f * x[idx] - 0.5f * acc[row];
     }
   }
 }
 
+template <bool kRmul>
 __global__ void ns_invsqrt_kernel(const float* __restrict__ a, float* __restrict__ z_out,
                                   int* __restrict__ iters_out, float* __restrict__ resid_out,
                                   int k, float inflat, float tol, int max_iters) {
@@ -149,10 +162,16 @@ __global__ void ns_invsqrt_kernel(const float* __restrict__ a, float* __restrict
       if (i < k && j < k) r = max_nan(r, fabsf(w[idx] - (i == j ? 1.f : 0.f)));
     }
     resid = block_max(r, red);  // uniform across the block, so is the loop
-    t_times(w, w, p, kp);       // P = T W
-    t_times(w, z, q, kp);       // Q = T Z, the new Z
-    __syncthreads();
-    t_times(w, p, z, kp);       // T P, the new W, into the old Z's buffer
+    half_step(w, w, w, p, kp);  // P = T W = W T
+    if (kRmul) {
+      half_step(z, w, z, q, kp);  // Q = Z T, the new Z
+      __syncthreads();
+      half_step(p, w, p, z, kp);  // P T, the new W, into the old Z's buffer
+    } else {
+      half_step(w, z, z, q, kp);  // Q = T Z, the new Z
+      __syncthreads();
+      half_step(w, p, p, z, kp);  // T P, the new W, into the old Z's buffer
+    }
     __syncthreads();
     float* old_w = w;
     w = z;
@@ -174,19 +193,20 @@ __global__ void ns_invsqrt_kernel(const float* __restrict__ a, float* __restrict
 }  // namespace
 
 // a: [batch, k, k] float32, contiguous.  z: same shape.  iters, resid: [batch].
-// Launches on `stream` and returns cudaGetLastError() after the launch.
+// rmul selects the K2 variant.  Launches on `stream` and returns
+// cudaGetLastError() after the launch.
 extern "C" int ns_invsqrt_f32(const float* a, float* z, int* iters, float* resid, int batch, int k,
-                              float inflat, float tol, int max_iters, void* stream) {
+                              float inflat, float tol, int max_iters, int rmul, void* stream) {
   if (batch <= 0 || k < 1 || k > kMaxK) return static_cast<int>(cudaErrorInvalidValue);
   const int kp = padded(k);
   const size_t smem = (4 * static_cast<size_t>(kp) * kp + 33) * sizeof(float);
   int threads = ((kp / kRows) * kp + 31) / 32 * 32;
   if (threads > kMaxThreads) threads = kMaxThreads;
-  cudaError_t err = cudaFuncSetAttribute(ns_invsqrt_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  auto kernel = rmul ? ns_invsqrt_kernel<true> : ns_invsqrt_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  ns_invsqrt_kernel<<<batch, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      a, z, iters, resid, k, inflat, tol, max_iters);
+  kernel<<<batch, threads, smem, static_cast<cudaStream_t>(stream)>>>(a, z, iters, resid, k,
+                                                                       inflat, tol, max_iters);
   return static_cast<int>(cudaGetLastError());
 }

@@ -28,11 +28,12 @@ import torch
 
 from ..constants import GC1999_SQ
 from .bucketed import (auto_block_size, default_max_blocks, hilbert3,
-                       required_max_blocks, sq_norm3)
-from .dense import fused_platform_table, terms_from_r2
+                       hilbert_blocks, pad_last, required_max_blocks, sq_norm3)
+from .dense import centered_r2, fused_platform_table, terms_from_r2
 from .neighbors import normalize_coords
 from .solver import letkf_solve_cycle_from_normal
-from .update import BUCKET_MIN_RECORDS, BucketBudget, DevicePlatform
+from .update import (BUCKET_MIN_RECORDS, BucketBudget, DevicePlatform,
+                     dense_table)
 
 
 class CycleGroup(NamedTuple):
@@ -111,38 +112,19 @@ def _cycle_blocking(dp, masks, wide_h, wide_v, block_size,
     the table build (:func:`.dense.fused_platform_table`), so the peak memory
     is one table.  ``geometry_only`` skips the tables.
     """
-    obs_raw = dp.xyz
-    obs_w = normalize_coords(obs_raw, wide_h, wide_v)
-    r = obs_raw.shape[0]
-    order = torch.argsort(hilbert3(obs_w), stable=True)
-    obs_raw_s = obs_raw[order]
-    obs_w_s = obs_w[order]
-
-    s = block_size
-    nb = -(-r // s)
-    pad = nb * s - r
-    rec_mask = torch.arange(nb * s, device=obs_raw.device) < r
-    if pad:
-        obs_raw_s = torch.cat([obs_raw_s, obs_raw_s[-1:].expand(pad, 3)])
-        obs_w_s = torch.cat([obs_w_s, obs_w_s[-1:].expand(pad, 3)])
-
+    hb = hilbert_blocks(normalize_coords(dp.xyz, wide_h, wide_v), block_size)
+    nb, s = hb.rec_mask.shape
     fused_by_mask: Tuple[torch.Tensor, ...] = ()
     nvalid_by_mask: Tuple[torch.Tensor, ...] = ()
     if not geometry_only:
-        pairs = [fused_platform_table(dp.stats, m, order=order, pad_to=nb * s)
-                 for m in masks]
+        pairs = [fused_platform_table(dp.stats, m, order=hb.order,
+                                      pad_to=nb * s) for m in masks]
         fused_by_mask = tuple(f.view(nb, s, -1) for f, _ in pairs)
         nvalid_by_mask = tuple(nv.view(nb, s) for _, nv in pairs)
-
-    obs_wb = obs_w_s.view(nb, s, 3)
-    mask_b = rec_mask.view(nb, s)
-    n_real = mask_b.sum(1, keepdim=True).clamp_min(1)
-    centers = torch.where(mask_b[..., None], obs_wb, 0.0).sum(1) / n_real
-    d2 = sq_norm3(obs_wb - centers[:, None, :])
-    radii = torch.sqrt(torch.where(mask_b, d2, 0.0).amax(1))
-    return CycleBlocking(xyz_raw=obs_raw_s, fused_by_mask=fused_by_mask,
-                         nvalid_by_mask=nvalid_by_mask, rec_mask=mask_b,
-                         centers_w=centers, radii_w=radii)
+    return CycleBlocking(xyz_raw=pad_last(dp.xyz[hb.order], hb.pad),
+                         fused_by_mask=fused_by_mask,
+                         nvalid_by_mask=nvalid_by_mask, rec_mask=hb.rec_mask,
+                         centers_w=hb.centers, radii_w=hb.radii)
 
 
 def _resolve_plans(
@@ -177,11 +159,7 @@ def _resolve_plans(
         cache = dp.cache if dp.cache is not None else {}
         tables = []
         if kind == "dense" and not geometry_only:
-            for m in masks:
-                key = ("fused", m)
-                if key not in cache:
-                    cache[key] = fused_platform_table(dp.stats, m)
-                tables.append(cache[key])
+            tables = [dense_table(dp, m, torch.float32) for m in masks]
         wide_h, wide_v = _wide_metric(st, groups, clients)
         centers = []
         for gi in clients:
@@ -220,10 +198,9 @@ def _group_r2(q_raw, obs_raw, st, ivar, center):
     platform-wide group-normalized record centroid, and expands the distance
     through one 3-wide matmul.
     """
-    qn = normalize_coords(q_raw, st.hclr[ivar], st.vclr[ivar]) - center
-    on = normalize_coords(obs_raw, st.hclr[ivar], st.vclr[ivar]) - center
-    return ((qn * qn).sum(-1, keepdim=True) + (on * on).sum(-1)[None, :]
-            - 2.0 * (qn @ on.T)).clamp_min(0.0)
+    return centered_r2(normalize_coords(q_raw, st.hclr[ivar], st.vclr[ivar]),
+                       normalize_coords(obs_raw, st.hclr[ivar], st.vclr[ivar]),
+                       center)
 
 
 def _bucketed_cycle_terms(q_raw, plan, groups, weight_function):

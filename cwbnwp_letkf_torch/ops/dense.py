@@ -1,7 +1,6 @@
 """Dense localization-weighted normal-term accumulation.
 
-Port of ``fused_platform_table``, ``_cap_threshold`` and ``terms_from_r2`` of
-the JAX package's ``ops/dense.py``.  The whitened normal terms are separable
+Port of the JAX package's ``ops/dense.py``.  The whitened normal terms are separable
 in (gridpoint, obs): with ``E = (valid & assim) / err^2`` and the distance
 weight ``G(r2)`` (Gaussian ``exp(-r2/2)`` or Gaspari-Cohn),
 
@@ -40,22 +39,27 @@ def fused_platform_table(
     *,
     order: torch.Tensor | None = None,
     pad_to: int | None = None,
+    dtype=torch.float32,
 ):
-    """The fused table ``[P, k*(k+1)]`` and accepted-obs counts ``[P]``.
+    """The fused table ``[P, k*(k+1)]`` in ``dtype`` and accepted-obs counts
+    ``[P]``.
 
-    Record r's row is the ``k x (k+1)`` matrix ``[BGBG_r | OMBG_r]``
-    flattened row-major.  ``order`` reorders the records and ``pad_to``
-    zero-pads them to ``P`` rows; both act on the small ``[V, R, k]``
-    statistics before the table is built, and the build runs in row slices of
-    ``_TABLE_ROW_SLICE``, so the only ``O(R k^2)`` array is the table itself.
+    QC, the assimilation mask and the error scaling fold into
+    ``E_vr = (valid & assim_v) / err^2``; record r's row is the
+    ``k x (k+1)`` matrix ``[BGBG_r | OMBG_r]`` flattened row-major.
+    ``order`` reorders the records and ``pad_to`` zero-pads them to ``P``
+    rows; both act on the small ``[V, R, k]`` statistics before the table is
+    built, and the build runs in row slices of ``_TABLE_ROW_SLICE``, so the
+    only ``O(R k^2)`` array is the table itself.
     """
     if stats.omm.shape[0] != len(assim_v):
         raise ValueError(f"assim mask has {len(assim_v)} vars, stats have "
                          f"{stats.omm.shape[0]}")
     active = torch.tensor(assim_v, dtype=torch.bool, device=stats.omm.device)
     valid = stats.valid & active[:, None]                      # [V, R]
-    e = torch.where(valid, 1.0 / (stats.err * stats.err), 0.0)
-    bg, omm = stats.bg, stats.omm
+    err = stats.err.to(dtype)
+    e = torch.where(valid, 1.0 / (err * err), 0.0)
+    bg, omm = stats.bg.to(dtype), stats.omm.to(dtype)
     nvalid = valid.sum(0, dtype=torch.int32)                   # [R]
     if order is not None:
         e, bg, omm, nvalid = e[:, order], bg[:, order], omm[:, order], nvalid[order]
@@ -135,7 +139,43 @@ def terms_from_r2(
         w2 = gaspari_cohn_1999(torch.sqrt(r2_sel))
     else:
         w2 = torch.exp(-0.5 * r2_sel)   # (exp(0.25 r2))^-2, letkf_core.f90:444
-    gm = torch.where(sel, w2, 0.0)                                 # [C, R]
+    gm = torch.where(sel, w2, 0.0).to(fused.dtype)                 # [C, R]
     out3 = (gm @ fused).view(c, k, k + 1)
     count = (sel.to(torch.float32) @ nvalid.to(torch.float32)).to(torch.int32)
     return out3[:, :, :k], out3[:, :, k], count
+
+
+def centered_r2(q: torch.Tensor, obs: torch.Tensor,
+                center: torch.Tensor) -> torch.Tensor:
+    """``[C, R]`` squared distances between ``q`` and ``obs``, both centered
+    on ``center`` ``[1, 3]`` and expanded through one 3-wide matmul."""
+    qc = q - center
+    oc = obs - center
+    return ((qc * qc).sum(-1, keepdim=True) + (oc * oc).sum(-1)[None, :]
+            - 2.0 * (qc @ oc.T)).clamp_min(0.0)
+
+
+def dense_platform_terms(
+    q_norm: torch.Tensor,
+    obs_norm: torch.Tensor,
+    fused: torch.Tensor,
+    nvalid: torch.Tensor,
+    *,
+    n_max: int,
+    weight_function: int,
+    r2_cap: float = GC1999_SQ,
+):
+    """One platform's normal terms for a chunk of points, over all records.
+
+    ``q_norm`` ``[C, 3]`` and ``obs_norm`` ``[R, 3]`` in the same
+    localization-normalized coordinates; distances are taken about the
+    records' mean; ``fused`` and ``nvalid`` are
+    :func:`fused_platform_table`'s.  Returns ``(a_obs [C, k, k], g [C, k],
+    count [C] int32)`` in the table's dtype.
+    """
+    obs = obs_norm.to(q_norm.dtype)
+    center = (obs.mean(0, keepdim=True) if obs.shape[0]
+              else torch.zeros((1, 3), dtype=q_norm.dtype, device=q_norm.device))
+    return terms_from_r2(centered_r2(q_norm, obs, center), fused, nvalid,
+                         n_max=n_max,
+                         weight_function=weight_function, r2_cap=r2_cap)

@@ -1,0 +1,69 @@
+"""Launch the CUDA Jacobi eigensolvers (``csrc/jacobi_eigh.cu``).
+
+Two kernels, one thread block per matrix, A and V in shared memory:
+
+- ``"parallel"`` (K3, even k >= 4): the Brent-Luk round-robin order; plain
+  version :func:`cwbnwp_letkf_torch.ops.jacobi_eigh.jacobi_parallel`;
+- ``"cyclic"`` (K4, odd k or k < 4): the sequential cyclic-by-row order;
+  plain version :func:`cwbnwp_letkf_torch.ops.jacobi_eigh.jacobi_cyclic`.
+
+:func:`cwbnwp_letkf_torch.ops.jacobi_eigh.jacobi_eigh` sends CUDA tensors
+here.  The library is built by :mod:`.cuda_build` at first use.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import cuda_build
+
+#: kernel launches per kernel since import (or since a caller reset them)
+LAUNCHES = {"parallel": 0, "cyclic": 0}
+
+#: largest ensemble size the kernels take (A and V must fit one block's
+#: shared memory)
+MAX_K = 96
+
+SOURCE = cuda_build.CSRC / "jacobi_eigh.cu"
+
+_fns: dict = {}
+
+
+def kernel_for(k: int) -> str:
+    """The kernel the TPU package's ``jacobi_eigh`` dispatch picks for ``k``."""
+    return "parallel" if k >= 4 and k % 2 == 0 else "cyclic"
+
+
+def _load(name: str):
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(cuda_build.load(SOURCE), f"jacobi_{name}_f32")
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fns[name] = fn
+    return fn
+
+
+def launch(a: torch.Tensor, *, sweeps: int = 7):
+    """Launch the kernel for ``k`` on a CUDA float32 ``[B, k, k]`` batch.
+
+    Returns the unsorted ``(lam [B, k], v [B, k, k])`` in the plain
+    version's order, before the polish.  Raises ``ValueError`` for an input
+    the kernels do not take and ``RuntimeError`` when the launch fails.
+    Does not synchronize.
+    """
+    cuda_build.check_batch(a, MAX_K)
+    if sweeps < 0:
+        raise ValueError(f"sweeps={sweeps} < 0")
+    b, k, _ = a.shape
+    name = kernel_for(k)
+    fn = _load(name)
+    lam = torch.empty((b, k), dtype=a.dtype, device=a.device)
+    v = torch.empty_like(a)
+    rc = fn(a.data_ptr(), lam.data_ptr(), v.data_ptr(), b, k, int(sweeps),
+            cuda_build.stream_of(a))
+    if rc != 0:
+        raise RuntimeError(f"jacobi_{name}_f32 launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
+    return lam, v

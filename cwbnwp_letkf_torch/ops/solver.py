@@ -1,25 +1,29 @@
-"""Batched ensemble-space LETKF solve by Newton-Schulz inverse square roots.
+"""Batched ensemble-space LETKF solve.
 
-Port of the Newton-Schulz path of the JAX package's ``ops/solver.py``.  With
-``A = a_obs + inflat*I`` (``a_obs = Yb' Yb'^T`` and ``g = Yb' yo'``
-accumulated per point) and ``Z = A^(-1/2)``, the analysis of every variable
-sharing that inflation value is
+Port of the JAX package's ``ops/solver.py``.  With ``A = a_obs + inflat*I``
+(``a_obs = Yb' Yb'^T`` and ``g = Yb' yo'`` accumulated per point), the
+analysis of a variable with that inflation value is
 
-    u  = Z xb'                    (xb' = member deviations)
-    s  = (Z g) . u                (= g^T A^-1 xb', Z symmetric)
-    xa = mean(xb) + s + sqrt(k-1) u
+    xa = mean(xb) + g^T A^-1 xb' + sqrt(k-1) A^(-1/2) xb'   (xb' = deviations)
 
 followed by RTPP / RTPS relaxation; points without obs keep the background.
-The solve never eigendecomposes.  ``Z`` comes from the coupled Newton-Schulz
-iteration: the hand-written CUDA kernel (:mod:`.ns_kernel`) for tensors on a
-card, its plain version :func:`ns_invsqrt` for tensors on the CPU.  Float32
-only; the eigh backends and the float64 paths are not ported.
+Two ways to the inverse factors, chosen by :func:`set_eigh_backend`:
+
+- Newton-Schulz: ``Z = A^(-1/2)``, then ``u = Z xb'``, ``s = (Z g) . u``;
+  the hand-written CUDA kernel (:mod:`.ns_kernel`) for tensors on a card,
+  its plain version :func:`ns_invsqrt` for tensors on the CPU.  Float32 only.
+- an eigendecomposition ``A = V diag(lam) V^T``: ``torch.linalg.eigh``
+  (``"xla"``, and every float64 solve) or the Jacobi eigensolvers
+  (``"jacobi"``, :mod:`.jacobi_eigh`).
+
+Every solve takes ``solver_dtype`` float32 or float64.
 """
 from __future__ import annotations
 
 import torch
 
 from . import ns_kernel
+from .jacobi_eigh import jacobi_eigh
 
 
 def ns_invsqrt(a_obs: torch.Tensor, inflat: float, *, tol: float = 1e-4,
@@ -60,6 +64,82 @@ def ns_invsqrt(a_obs: torch.Tensor, inflat: float, *, tol: float = 1e-4,
     return z
 
 
+def ns_invsqrt_rmul(a_obs: torch.Tensor, inflat: float, *, tol: float = 1e-4,
+                    max_iters: int = 24, return_info: bool = False):
+    """Batched ``Z ~= (a_obs + inflat*I)^(-1/2)`` by right multiplication.
+
+    The plain version of the CUDA kernel's ``packing="rmul"`` variant (the
+    TPU kernel ``_ns_kernel_rmul``).  The W-form of the coupled iteration on
+    ``W_0 = A/c``, ``Z_0 = I``, with ``c`` the Gershgorin bound over 1.9 as
+    in :func:`ns_invsqrt`::
+
+        T = (3I - W) / 2,   U = W T,   Z <- Z T,   W <- U T
+
+    Every iterate is a polynomial in ``A``, so ``W``, ``Z`` and ``T``
+    commute and this is the map of :func:`ns_invsqrt`.  The same stopping
+    rule: the batch-wide ``max|W - I|`` before a step at most ``tol``, or
+    ``max_iters`` steps.  Returns ``z`` or ``(z, iters, err)``.
+    """
+    k = a_obs.shape[-1]
+    eye = torch.eye(k, dtype=a_obs.dtype, device=a_obs.device)
+    a = a_obs + inflat * eye
+    c = a.abs().sum(-1).amax(-1) / 1.9
+    c = c.clamp_min(torch.finfo(a.dtype).tiny)
+    w = a / c[:, None, None]
+    z = eye.expand_as(a).clone()
+    err = torch.tensor(float("inf"), dtype=a.dtype, device=a.device)
+    iters = 0
+    while float(err) > tol and iters < max_iters:
+        err = (w - eye).abs().max()
+        t = 1.5 * eye - 0.5 * w
+        u = w @ t
+        z = z @ t
+        w = u @ t
+        iters += 1
+    z = z / torch.sqrt(c)[:, None, None]
+    if return_info:
+        return z, iters, err
+    return z
+
+
+_EIGH_BACKEND = "auto"
+
+#: the backends :func:`set_eigh_backend` takes
+EIGH_BACKENDS = ("auto", "xla", "jacobi", "ns")
+
+
+def set_eigh_backend(name: str):
+    """Select the ensemble-space factorization of every later solve.
+
+    - ``"auto"`` (default): Newton-Schulz for float32 ``[B, k, k]`` batches,
+      on every device; ``torch.linalg.eigh`` otherwise.  (The JAX package's
+      ``"auto"`` eigendecomposed on the CPU; here the CPU runs the card's
+      path on the plain versions.)
+    - ``"ns"``: another name for ``"auto"``, kept so that call sites written
+      for the JAX package (where the two differ on the CPU) run unchanged.
+    - ``"xla"``: ``torch.linalg.eigh``, the counterpart of the JAX package's
+      XLA eigh.
+    - ``"jacobi"``: the Jacobi eigensolvers for float32 batches (on a card the
+      CUDA kernels, which take k <= 96 and raise above it);
+      ``torch.linalg.eigh`` for float64.
+    """
+    global _EIGH_BACKEND
+    if name not in EIGH_BACKENDS:
+        raise ValueError(f"unknown eigh backend {name!r}")
+    _EIGH_BACKEND = name
+
+
+def _use_jacobi(a: torch.Tensor) -> bool:
+    return (_EIGH_BACKEND == "jacobi" and a.dtype == torch.float32
+            and a.ndim == 3)
+
+
+def _use_ns(a_obs: torch.Tensor) -> bool:
+    """Whether the Newton-Schulz inverse-sqrt path handles this solve."""
+    return (_EIGH_BACKEND in ("auto", "ns") and a_obs.dtype == torch.float32
+            and a_obs.ndim == 3)
+
+
 def _ns_z(a_obs: torch.Tensor, inflat: float):
     """``(z, residual)``: the CUDA kernel on a card, the plain version on the CPU."""
     if a_obs.device.type == "cuda":
@@ -71,6 +151,177 @@ def _ns_z(a_obs: torch.Tensor, inflat: float):
     raise ValueError(f"no Newton-Schulz solve for tensors on {a_obs.device}")
 
 
+def _eigh_batch(a: torch.Tensor):
+    """Batched symmetric eigendecomposition ``(lam, v)``, in any order: the
+    solver only forms order-invariant ``V f(diag) V^T`` quantities."""
+    if _use_jacobi(a):
+        return jacobi_eigh(a)
+    return torch.linalg.eigh(a)
+
+
+def letkf_weight_factors_from_normal(a_obs, g, inflat, *,
+                                     solver_dtype=torch.float32):
+    """``(lam, v, g)``: the eigenpairs of ``A = a_obs + inflat*I`` and ``g``,
+    in ``solver_dtype``."""
+    k = a_obs.shape[-1]
+    a = a_obs.to(solver_dtype) + inflat * torch.eye(
+        k, dtype=solver_dtype, device=a_obs.device)
+    lam, v = _eigh_batch(a)
+    return lam, v, g.to(solver_dtype)
+
+
+def letkf_weight_factors(yo, yb, inflat, *, solver_dtype=torch.float32):
+    """The eigen-factored weight transform from whitened ``yo [B, n]`` and
+    ``yb [B, k, n]`` (zero-padded obs slots contribute nothing)."""
+    yb = yb.to(solver_dtype)
+    a_obs = torch.einsum("bkn,bln->bkl", yb, yb)
+    g = torch.einsum("bkn,bn->bk", yb, yo.to(solver_dtype))
+    return letkf_weight_factors_from_normal(a_obs, g, inflat,
+                                            solver_dtype=solver_dtype)
+
+
+def apply_weight_factors(lam, v, g, xb, *, solver_dtype=torch.float32):
+    """The analysis ``[B, k]`` of one field ``xb [B, k]`` from the factors:
+    ``s = (V^T g / lam) . (V^T xb')``, ``t = V ((V^T xb') / sqrt(lam))``."""
+    xb = xb.to(solver_dtype)
+    k = xb.shape[-1]
+    xb_mean = xb.mean(-1, keepdim=True)
+    vt_g = torch.einsum("bik,bi->bk", v, g)
+    vt_x = torch.einsum("bik,bi->bk", v, xb - xb_mean)
+    s = ((vt_g / lam) * vt_x).sum(-1, keepdim=True)
+    t = torch.einsum("bik,bk->bi", v, vt_x / torch.sqrt(lam))
+    return xb_mean + s + (k - 1) ** 0.5 * t
+
+
+def _apply_z(z, g, xb, *, solver_dtype=torch.float32):
+    """The analysis of one field from ``Z = A^(-1/2)``: ``u = Z xb'``,
+    ``s = (Z g) . u``."""
+    xb = xb.to(solver_dtype)
+    k = xb.shape[-1]
+    xb_mean = xb.mean(-1, keepdim=True)
+    zg = torch.einsum("bij,bj->bi", z, g.to(solver_dtype))
+    u = torch.einsum("bij,bj->bi", z, xb - xb_mean)
+    s = (zg * u).sum(-1, keepdim=True)
+    return xb_mean + s + (k - 1) ** 0.5 * u
+
+
+def _relax(xa, xb_prime, use_rtpp, rtpp_alpha, use_rtps, rtps_alpha):
+    """RTPP / RTPS posterior spread relaxation (letkf_core.f90:684-698)."""
+    xa_mean = xa.mean(-1, keepdim=True)
+    xa_prime = xa - xa_mean
+    if use_rtpp:
+        xa_prime = (1.0 - rtpp_alpha) * xa_prime + rtpp_alpha * xb_prime
+    if use_rtps:
+        xb_std = (xb_prime * xb_prime).sum(-1, keepdim=True)
+        xa_std = (xa_prime * xa_prime).sum(-1, keepdim=True)
+        xa_std = xa_std.clamp_min(torch.finfo(xa.dtype).tiny)
+        factor = rtps_alpha * torch.sqrt(xb_std / xa_std) - rtps_alpha + 1.0
+        xa_prime = xa_prime * factor
+    return xa_mean + xa_prime
+
+
+def _relax_group(xa, xb_prime, rtpp_alpha, rtps_alpha):
+    """RTPP then RTPS over ``[B, V, k]`` with ``[V]`` strengths; a strength of
+    0 is an exact identity, so disabled variables need no other path."""
+    rtpp = torch.tensor(rtpp_alpha, dtype=xa.dtype, device=xa.device)[None, :, None]
+    rtps = torch.tensor(rtps_alpha, dtype=xa.dtype, device=xa.device)[None, :, None]
+    xa_mean = xa.mean(-1, keepdim=True)
+    xa_prime = xa - xa_mean
+    xa_prime = (1.0 - rtpp) * xa_prime + rtpp * xb_prime
+    xb_std = (xb_prime * xb_prime).sum(-1, keepdim=True)
+    xa_std = (xa_prime * xa_prime).sum(-1, keepdim=True)
+    xa_std = xa_std.clamp_min(torch.finfo(xa.dtype).tiny)
+    factor = rtps * torch.sqrt(xb_std / xa_std) - rtps + 1.0
+    return xa_mean + xa_prime * factor
+
+
+def letkf_solve_batch(xb, yo, yb, inflat, has_obs, *, use_rtpp: bool = False,
+                      rtpp_alpha: float = 0.85, use_rtps: bool = False,
+                      rtps_alpha: float = 0.85, solver_dtype=torch.float32):
+    """LETKF analysis ``[B, k]`` in ``xb``'s dtype from whitened innovations
+    ``yo [B, n]`` and obs-space perturbations ``yb [B, k, n]``; points where
+    ``has_obs [B]`` is False keep their background."""
+    yb_s = yb.to(solver_dtype)
+    a_obs = torch.einsum("bkn,bln->bkl", yb_s, yb_s)
+    g = torch.einsum("bkn,bn->bk", yb_s, yo.to(solver_dtype))
+    return letkf_solve_from_normal(
+        a_obs, g, xb, inflat, has_obs, use_rtpp=use_rtpp, rtpp_alpha=rtpp_alpha,
+        use_rtps=use_rtps, rtps_alpha=rtps_alpha, solver_dtype=solver_dtype)
+
+
+def letkf_solve_from_normal(a_obs, g, xb, inflat, has_obs, *,
+                            use_rtpp: bool = False, rtpp_alpha: float = 0.85,
+                            use_rtps: bool = False, rtps_alpha: float = 0.85,
+                            solver_dtype=torch.float32,
+                            return_diagnostics: bool = False):
+    """Like :func:`letkf_solve_batch`, from accumulated normal terms
+    ``a_obs [B, k, k]``, ``g [B, k]``.
+
+    With ``return_diagnostics`` also returns ``{"ns_residual": 0-d float32}``,
+    the Newton-Schulz certificate (0 on the eigh paths).
+    """
+    a = a_obs.to(solver_dtype)
+    resid = torch.zeros((), dtype=torch.float32, device=a.device)
+    if _use_ns(a):
+        z, resid = _ns_z(a, inflat)
+        xa = _apply_z(z, g, xb, solver_dtype=solver_dtype)
+    else:
+        lam, v, g = letkf_weight_factors_from_normal(
+            a, g, inflat, solver_dtype=solver_dtype)
+        xa = apply_weight_factors(lam, v, g, xb, solver_dtype=solver_dtype)
+    if use_rtpp or use_rtps:
+        xbp = xb.to(solver_dtype)
+        xbp = xbp - xbp.mean(-1, keepdim=True)
+        xa = _relax(xa, xbp, use_rtpp, rtpp_alpha, use_rtps, rtps_alpha)
+    xa = torch.where(has_obs[:, None], xa.to(xb.dtype), xb)
+    if return_diagnostics:
+        return xa, {"ns_residual": resid.to(torch.float32)}
+    return xa
+
+
+def letkf_solve_group_from_normal(a_obs, g, xb, inflats, has_obs, *,
+                                  rtpp_alpha, rtps_alpha,
+                                  solver_dtype=torch.float32,
+                                  return_diagnostics: bool = False):
+    """Fused solve of ``V`` variables sharing one set of normal terms.
+
+    ``xb [B, V, k]``, ``inflats``, ``rtpp_alpha`` and ``rtps_alpha`` ``[V]``
+    (0 disables either exactly).  ``A_v = a_obs + inflat_v I`` differ only by
+    a multiple of the identity, so one eigendecomposition of ``a_obs`` serves
+    the whole group (eigenvalues shift by ``inflat_v``); on the
+    Newton-Schulz path one ``Z`` serves each distinct inflation value (the
+    stacked solve of :func:`letkf_solve_cycle_from_normal` for one group).
+
+    Returns ``xa [B, V, k]`` in ``xb``'s dtype; with ``return_diagnostics``
+    also ``{"ns_residual": 0-d float32}``.
+    """
+    a = a_obs.to(solver_dtype)
+    if _use_ns(a):
+        outs, diag = letkf_solve_cycle_from_normal(
+            [a], [g], [xb], [inflats], [has_obs], rtpp_alpha_groups=[rtpp_alpha],
+            rtps_alpha_groups=[rtps_alpha], solver_dtype=solver_dtype,
+            return_diagnostics=True)
+        return (outs[0], diag) if return_diagnostics else outs[0]
+    xb_s = xb.to(solver_dtype)
+    k = xb.shape[-1]
+    xb_mean = xb_s.mean(-1, keepdim=True)
+    xb_prime = xb_s - xb_mean                                     # [B, V, k]
+    lam0, v = _eigh_batch(a)                                      # [B, k], [B, k, k]
+    vt_g = torch.einsum("bik,bi->bk", v, g.to(solver_dtype))
+    vt_x = torch.einsum("bik,bvi->bvk", v, xb_prime)
+    lam = lam0[:, None, :] + torch.tensor(
+        inflats, dtype=solver_dtype, device=a.device)[None, :, None]   # [B, V, k]
+    s = ((vt_g[:, None, :] / lam) * vt_x).sum(-1, keepdim=True)
+    t = torch.einsum("bik,bvk->bvi", v, vt_x / torch.sqrt(lam))
+    xa = _relax_group(xb_mean + s + (k - 1) ** 0.5 * t, xb_prime,
+                      rtpp_alpha, rtps_alpha)
+    xa = torch.where(has_obs[:, None, None], xa.to(xb.dtype), xb)
+    if return_diagnostics:
+        return xa, {"ns_residual": torch.zeros((), dtype=torch.float32,
+                                               device=a.device)}
+    return xa
+
+
 def letkf_solve_cycle_from_normal(
     a_groups,
     g_groups,
@@ -80,6 +331,7 @@ def letkf_solve_cycle_from_normal(
     *,
     rtpp_alpha_groups,
     rtps_alpha_groups,
+    solver_dtype=torch.float32,
     return_diagnostics: bool = False,
 ):
     """Several variable groups' solves, the NS iterations stacked by inflation.
@@ -89,18 +341,30 @@ def letkf_solve_cycle_from_normal(
     floats ``(k-1)/multi_infl``, ``has_obs_groups[gi]`` ``[B]`` bool, and
     ``[V]`` RTPP / RTPS strengths (0 disables either exactly).
 
-    All groups that share an inflation value go into ONE Newton-Schulz call:
-    two calls per chunk under the production namelist (1.6 dynamics, 1.1
-    moisture).  On the CPU the plain iteration stops on the stack's worst
-    residual, so the reported ``ns_residual`` is the worst over all stacks.
+    On the Newton-Schulz path all groups that share an inflation value go
+    into ONE Newton-Schulz call: two calls per chunk under the production
+    namelist (1.6 dynamics, 1.1 moisture).  On the CPU the plain iteration
+    stops on the stack's worst residual, so the reported ``ns_residual`` is
+    the worst over all stacks.  The eigh backends and float64 solve group by
+    group (:func:`letkf_solve_group_from_normal`), one eigendecomposition
+    each.
 
     Returns the per-group ``xa`` list in each ``xb``'s dtype, plus
     ``{"ns_residual": 0-d float32}`` with ``return_diagnostics``.
     """
-    f32 = torch.float32
     n_groups = len(a_groups)
-    k = xb_groups[0].shape[-1]
     dev = xb_groups[0].device
+    resid = torch.zeros((), dtype=torch.float32, device=dev)
+    if not _use_ns(a_groups[0].to(solver_dtype)):
+        outs = [letkf_solve_group_from_normal(
+            a_groups[gi], g_groups[gi], xb_groups[gi], inflats_groups[gi],
+            has_obs_groups[gi], rtpp_alpha=rtpp_alpha_groups[gi],
+            rtps_alpha=rtps_alpha_groups[gi], solver_dtype=solver_dtype)
+            for gi in range(n_groups)]
+        return (outs, {"ns_residual": resid}) if return_diagnostics else outs
+
+    f32 = torch.float32
+    k = xb_groups[0].shape[-1]
     sqkm1 = torch.sqrt(torch.tensor(k - 1, dtype=f32, device=dev))
     a_gs = [a.to(f32) for a in a_groups]
     g_gs = [g.to(f32) for g in g_groups]
@@ -117,7 +381,6 @@ def letkf_solve_cycle_from_normal(
         for val, vis in seen.items():
             by_val.setdefault(val, []).append((gi, vis))
 
-    resid = torch.zeros((), dtype=f32, device=dev)
     xa_cols = [[None] * len(inflats_groups[gi]) for gi in range(n_groups)]
     for val, members in by_val.items():
         astack = (a_gs[members[0][0]] if len(members) == 1
@@ -138,19 +401,10 @@ def letkf_solve_cycle_from_normal(
 
     outs = []
     for gi in range(n_groups):
-        xa = torch.stack(xa_cols[gi], 1)
-        rtpp = torch.tensor(rtpp_alpha_groups[gi], dtype=f32, device=dev)[None, :, None]
-        rtps = torch.tensor(rtps_alpha_groups[gi], dtype=f32, device=dev)[None, :, None]
-        xa_mean = xa.mean(-1, keepdim=True)
-        xa_prime = xa - xa_mean
-        xa_prime = (1.0 - rtpp) * xa_prime + rtpp * primes[gi]
-        xb_std = (primes[gi] * primes[gi]).sum(-1, keepdim=True)
-        xa_std = (xa_prime * xa_prime).sum(-1, keepdim=True)
-        xa_std = xa_std.clamp_min(torch.finfo(f32).tiny)
-        factor = rtps * torch.sqrt(xb_std / xa_std) - rtps + 1.0
-        xa = (xa_mean + xa_prime * factor).to(xb_groups[gi].dtype)
-        outs.append(torch.where(has_obs_groups[gi][:, None, None], xa,
-                                xb_groups[gi]))
+        xa = _relax_group(torch.stack(xa_cols[gi], 1), primes[gi],
+                          rtpp_alpha_groups[gi], rtps_alpha_groups[gi])
+        outs.append(torch.where(has_obs_groups[gi][:, None, None],
+                                xa.to(xb_groups[gi].dtype), xb_groups[gi]))
     if return_diagnostics:
         return outs, {"ns_residual": resid}
     return outs

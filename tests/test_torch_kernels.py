@@ -1,4 +1,8 @@
-"""The CUDA Newton-Schulz kernel against its plain PyTorch version, on a card.
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+K1 and K2 are the two packings of the Newton-Schulz kernel
+(``csrc/ns_invsqrt.cu``), K3 and K4 the Jacobi eigensolvers
+(``csrc/jacobi_eigh.cu``).
 
 Every test here needs a CUDA device and ``nvcc``; without a card they skip.
 On the card run them alone, without the JAX test harness:
@@ -9,9 +13,17 @@ import numpy as np
 import pytest
 import torch
 
-from cwbnwp_letkf_torch.ops import ns_kernel, solver
+from cwbnwp_letkf_torch.ops import eigh_kernel, ns_kernel, solver
+from cwbnwp_letkf_torch.ops.jacobi_eigh import (jacobi_cyclic, jacobi_eigh,
+                                                jacobi_parallel)
 
-from .torch_parity import assert_ns_close, ill_conditioned_case, normal_case
+from .torch_parity import (assert_eigh_close, assert_k96_sweep_level,
+                           assert_ns_close, ill_conditioned_case, normal_case,
+                           spd_case)
+
+#: the ensemble sizes of the kernel checks: both Jacobi kernels, odd and
+#: even, below and above a warp, and the largest k the kernels take
+KS = [2, 3, 8, 9, 40, 41, 96]
 
 pytestmark = pytest.mark.gpu
 
@@ -30,10 +42,10 @@ def test_kernel_matches_plain(cuda, k, b):
     a_np, _ = normal_case(rng, b, k, 2 * k)
     inflat = (k - 1) / 1.1
     a = torch.from_numpy(a_np).to(cuda)
-    before = ns_kernel.LAUNCHES
+    before = ns_kernel.LAUNCHES["trio"]
     z, iters, resid = ns_kernel.ns_invsqrt_cuda(a, inflat)
     torch.cuda.synchronize()
-    assert ns_kernel.LAUNCHES == before + 1
+    assert ns_kernel.LAUNCHES["trio"] == before + 1
     assert float(resid) <= 1e-4
     assert 1 <= int(iters) <= 24
     z_plain = solver.ns_invsqrt(a, inflat)
@@ -57,9 +69,9 @@ def test_kernel_ill_conditioned(cuda, k):
 def test_ns_z_dispatches_cuda_to_kernel(cuda):
     rng = np.random.default_rng(5)
     a_np, _ = normal_case(rng, 9, 40, 80)
-    before = ns_kernel.LAUNCHES
+    before = dict(ns_kernel.LAUNCHES)
     z, resid = solver._ns_z(torch.from_numpy(a_np).to(cuda), 39 / 1.6)
-    assert ns_kernel.LAUNCHES == before + 1
+    assert ns_kernel.LAUNCHES == {**before, "trio": before["trio"] + 1}
     assert z.is_cuda and float(resid) <= 1e-4
 
 
@@ -72,3 +84,99 @@ def test_ns_z_dispatches_cuda_to_kernel(cuda):
 def test_kernel_rejects_bad_input(cuda, bad):
     with pytest.raises(ValueError):
         ns_kernel.ns_invsqrt_cuda(bad(cuda), 1.0)
+    with pytest.raises(ValueError):
+        ns_kernel.ns_invsqrt_cuda(bad(cuda), 1.0, packing="rmul")
+    with pytest.raises(ValueError):
+        eigh_kernel.launch(bad(cuda))
+
+
+def test_jacobi_kernel_rejects_empty_batch(cuda):
+    with pytest.raises(ValueError):
+        eigh_kernel.launch(torch.zeros(0, 8, 8, device=cuda))
+
+
+@pytest.mark.parametrize("k", KS)
+def test_rmul_kernel_matches_plain(cuda, k):
+    """K2 against its plain version and against K1: the same map."""
+    rng = np.random.default_rng(100 + k)
+    a_np, _ = normal_case(rng, 37, k, 2 * k)
+    inflat = (k - 1) / 1.1 if k > 1 else 1.0
+    a = torch.from_numpy(a_np).to(cuda)
+    before = dict(ns_kernel.LAUNCHES)
+    z, iters, resid = ns_kernel.ns_invsqrt_cuda(a, inflat, packing="rmul")
+    torch.cuda.synchronize()
+    assert ns_kernel.LAUNCHES == {**before, "rmul": before["rmul"] + 1}
+    assert float(resid) <= 1e-4 and 1 <= int(iters) <= 24
+    z_plain = solver.ns_invsqrt_rmul(a, inflat)
+    assert_ns_close(z.cpu().numpy(), z_plain.cpu().numpy(), a_np, inflat,
+                    same_iteration=False)
+    z_trio, _, _ = ns_kernel.ns_invsqrt_cuda(a, inflat)
+    assert_ns_close(z.cpu().numpy(), z_trio.cpu().numpy(), a_np, inflat,
+                    same_iteration=False)
+
+
+@pytest.mark.parametrize("k", KS)
+def test_jacobi_kernel_matches_plain(cuda, k):
+    """K3 (even k >= 4) and K4 (odd or tiny k) against their plain versions
+    on the card: the sweeps' eigenpairs element by element, in the same
+    order, on the inputs of tests/test_pallas_eigh.py; then the polished
+    eigenpairs of the solver's ``A = a_obs + inflat I`` within that file's
+    tolerances (:28-35).  (On ``G G^T + 10 I`` at k=96 seven sweeps leave a
+    reconstruction error of 4e-5 max|A| after the polish, in the plain
+    version as in the TPU kernel; eight reach 1e-6.)"""
+    rng = np.random.default_rng(200 + k)
+    a = torch.from_numpy(spd_case(rng, 33, k)).to(cuda)
+    name = eigh_kernel.kernel_for(k)
+    plain = jacobi_parallel if name == "parallel" else jacobi_cyclic
+    before = dict(eigh_kernel.LAUNCHES)
+    lam, v = eigh_kernel.launch(a)
+    torch.cuda.synchronize()
+    assert eigh_kernel.LAUNCHES == {**before, name: before[name] + 1}
+    lam_p, v_p = plain(a)
+    torch.testing.assert_close(lam, lam_p, rtol=1e-4,
+                               atol=3e-5 * float(a.abs().max()))
+    torch.testing.assert_close(v, v_p, rtol=0, atol=1e-5)
+    a_obs, _ = normal_case(rng, 33, k, 2 * k)
+    a_np = a_obs + (k - 1 if k > 1 else 1) / 1.6 * np.eye(k, dtype=np.float32)
+    lam_w, v_w = jacobi_eigh(torch.from_numpy(a_np).to(cuda))
+    assert_eigh_close(lam_w.cpu().numpy(), v_w.cpu().numpy(), a_np)
+
+
+def test_jacobi_kernel_k96_sweep_level(cuda):
+    """K3 at the production k=96: seven sweeps keep their known accuracy on
+    ``G G^T + 10 I`` (4.0e-5 max|A| after the polish), eight meet 3e-5."""
+    before = eigh_kernel.LAUNCHES["parallel"]
+    assert_k96_sweep_level(jacobi_eigh, cuda)
+    assert eigh_kernel.LAUNCHES["parallel"] == before + 2
+
+
+@pytest.mark.parametrize("k", [40, 41])
+def test_jacobi_eigh_dispatches_cuda_to_kernel(cuda, k):
+    a_np = spd_case(np.random.default_rng(300 + k), 9, k)
+    before = sum(eigh_kernel.LAUNCHES.values())
+    lam, v = jacobi_eigh(torch.from_numpy(a_np).to(cuda))
+    assert sum(eigh_kernel.LAUNCHES.values()) == before + 1
+    assert lam.is_cuda and v.is_cuda
+    assert_eigh_close(lam.cpu().numpy(), v.cpu().numpy(), a_np)
+
+
+def test_jacobi_solve_on_cuda_has_no_fallback(cuda):
+    """Under "jacobi" a CUDA solve launches the kernel, and above the
+    kernel's k it raises instead of taking another eigensolver."""
+    solver.set_eigh_backend("jacobi")
+    try:
+        for k, ok in ((12, True), (eigh_kernel.MAX_K + 1, False)):
+            a_np, g_np = normal_case(np.random.default_rng(k), 8, k, 2 * k)
+            a, g = (torch.from_numpy(x).to(cuda) for x in (a_np, g_np))
+            xb = torch.randn(8, k, device=cuda)
+            has = torch.ones(8, dtype=torch.bool, device=cuda)
+            before = eigh_kernel.LAUNCHES["parallel"]
+            if ok:
+                xa = solver.letkf_solve_from_normal(a, g, xb, k - 1.0, has)
+                assert bool(torch.isfinite(xa).all())
+                assert eigh_kernel.LAUNCHES["parallel"] == before + 1
+            else:
+                with pytest.raises(ValueError):
+                    solver.letkf_solve_from_normal(a, g, xb, k - 1.0, has)
+    finally:
+        solver.set_eigh_backend("auto")

@@ -23,6 +23,7 @@ def _ns_backend():
     jsolver.set_eigh_backend("ns")
     yield
     jsolver.set_eigh_backend("auto")
+    solver.set_eigh_backend("auto")
 
 
 @pytest.mark.parametrize("k", [8, 21, 40, 96])
@@ -62,9 +63,32 @@ def test_ns_invsqrt_matches_pallas_kernel(k):
     assert_ns_close(z.numpy(), np.asarray(z_p), a_obs, inflat)
 
 
+def test_ns_invsqrt_rmul_matches_pallas_kernel():
+    """The plain rmul version against the TPU's rmul kernel, interpreted,
+    with the tolerances of tests/test_ns_solver.py:325-331; and against the
+    plain trio version, which runs the same map."""
+    from cwbnwp_letkf_tpu.ops.pallas_ns import ns_invsqrt_pallas
+
+    k = 40
+    a_obs, _ = normal_case(np.random.default_rng(12), 8, k, 2 * k)
+    inflat = (k - 1) / 1.1
+    z_p = np.asarray(ns_invsqrt_pallas(jnp.asarray(a_obs), inflat,
+                                       packing="rmul", interpret=True),
+                     np.float64)
+    z, iters, err = solver.ns_invsqrt_rmul(torch.from_numpy(a_obs), inflat,
+                                           return_info=True)
+    assert float(err) <= 1e-4 and 1 <= iters <= 24
+    z = z.numpy().astype(np.float64)
+    for zz in (z_p, z):
+        assert zaz_residual(zz, a_obs, inflat) < 5e-4
+    np.testing.assert_allclose(z, z_p, rtol=0, atol=1e-4 * np.abs(z_p).max())
+    z_trio = solver.ns_invsqrt(torch.from_numpy(a_obs), inflat)
+    assert_ns_close(z, z_trio.numpy(), a_obs, inflat)
+
+
 def test_ns_z_takes_plain_version_on_cpu():
     a_obs, _ = normal_case(np.random.default_rng(6), 9, 24, 48)
-    before = ns_kernel.LAUNCHES
+    before = dict(ns_kernel.LAUNCHES)
     z, resid = solver._ns_z(torch.from_numpy(a_obs), 23 / 1.6)
     assert ns_kernel.LAUNCHES == before
     z_plain, _, err = solver.ns_invsqrt(torch.from_numpy(a_obs), 23 / 1.6,
@@ -81,10 +105,17 @@ def test_ns_z_takes_plain_version_on_cpu():
     torch.zeros(0, 40, 40),
 ])
 def test_kernel_wrapper_rejects_what_it_does_not_take(bad):
-    before = ns_kernel.LAUNCHES
+    before = dict(ns_kernel.LAUNCHES)
     with pytest.raises(ValueError):
         ns_kernel.ns_invsqrt_cuda(bad, 1.0)
+    with pytest.raises(ValueError):
+        ns_kernel.ns_invsqrt_cuda(bad, 1.0, packing="rmul")
     assert ns_kernel.LAUNCHES == before
+
+
+def test_kernel_wrapper_rejects_unknown_packing():
+    with pytest.raises(ValueError):
+        ns_kernel.launch(torch.zeros(4, 8, 8), 1.0, packing="blkdiag")
 
 
 def test_cycle_solve_mixed_inflations_matches_jax():
@@ -137,3 +168,124 @@ def test_tune_q_matches_jax():
     got = solver.tune_q(torch.from_numpy(q)).numpy()
     np.testing.assert_allclose(got, expect, rtol=1e-6, atol=0)
     assert not got[:5].any()
+
+
+def _solve_case(rng, k, sizes, n_vars):
+    """Per group: normal terms, a ``[B, V, k]`` background and a has-obs mask
+    with rows left out (tests/test_pallas_eigh.py:55-61)."""
+    out = []
+    for gi, b in enumerate(sizes):
+        a, g = normal_case(rng, b, k, 20 + 6 * gi)
+        xb = rng.normal(5, 2, (b, n_vars[gi], k)).astype(np.float32)
+        out.append((a, g, xb, rng.random(b) > 0.25))
+    return out
+
+
+@pytest.mark.parametrize("backend", ["xla", "jacobi"])
+@pytest.mark.parametrize("entry", ["from_normal", "group", "cycle"])
+def test_eigh_solves_match_jax(entry, backend):
+    """The eigendecomposing solves on both sides, within the Jacobi-vs-XLA
+    tolerance of tests/test_pallas_eigh.py:72; rows without obs keep the
+    background bit for bit.  The per-variable case runs at an odd k (the
+    sequential Jacobi kernel), the group and cycle cases at an even one."""
+    rng = np.random.default_rng(73)
+    k = 9 if entry == "from_normal" else 10
+    inflats_gs = (((k - 1) / 1.6, (k - 1) / 1.1), ((k - 1) / 1.1,))
+    rtpp_gs = ((0.9, 0.0), (0.0,))
+    rtps_gs = ((0.0, 0.95), (0.9,))
+    groups = _solve_case(rng, k, (24, 17), (2, 1))
+    solver.set_eigh_backend(backend)
+    jsolver.set_eigh_backend(backend)
+    before = dict(ns_kernel.LAUNCHES)
+    if entry == "from_normal":
+        a, g, xb, has = groups[0]
+        xb = xb[:, 0]
+        kw = dict(use_rtpp=True, rtpp_alpha=0.9, use_rtps=True, rtps_alpha=0.9,
+                  return_diagnostics=True)
+        outs, diag = solver.letkf_solve_from_normal(
+            torch.from_numpy(a), torch.from_numpy(g), torch.from_numpy(xb),
+            inflats_gs[0][0], torch.from_numpy(has), **kw)
+        outs_j, _ = jsolver.letkf_solve_from_normal(
+            jnp.asarray(a), jnp.asarray(g), jnp.asarray(xb), inflats_gs[0][0],
+            jnp.asarray(has), **kw)
+        pairs = [(outs, outs_j, xb, has)]
+    elif entry == "group":
+        a, g, xb, has = groups[0]
+        outs, diag = solver.letkf_solve_group_from_normal(
+            torch.from_numpy(a), torch.from_numpy(g), torch.from_numpy(xb),
+            inflats_gs[0], torch.from_numpy(has), rtpp_alpha=rtpp_gs[0],
+            rtps_alpha=rtps_gs[0], return_diagnostics=True)
+        outs_j = jsolver.letkf_solve_group_from_normal(
+            jnp.asarray(a), jnp.asarray(g), jnp.asarray(xb), inflats_gs[0],
+            jnp.asarray(has), rtpp_alpha=rtpp_gs[0], rtps_alpha=rtps_gs[0])
+        pairs = [(outs, outs_j, xb, has)]
+    else:
+        tgs = [[torch.from_numpy(x) for x in grp] for grp in groups]
+        outs, diag = solver.letkf_solve_cycle_from_normal(
+            *zip(*[grp[:3] for grp in tgs]), inflats_gs, [grp[3] for grp in tgs],
+            rtpp_alpha_groups=rtpp_gs, rtps_alpha_groups=rtps_gs,
+            return_diagnostics=True)
+        outs_j = jsolver.letkf_solve_cycle_from_normal(
+            *zip(*[[jnp.asarray(x) for x in grp[:3]] for grp in groups]),
+            inflats_gs, [jnp.asarray(grp[3]) for grp in groups],
+            rtpp_alpha_groups=rtpp_gs, rtps_alpha_groups=rtps_gs)
+        pairs = [(o, oj, grp[2], grp[3])
+                 for o, oj, grp in zip(outs, outs_j, groups)]
+    assert ns_kernel.LAUNCHES == before
+    assert float(diag["ns_residual"]) == 0.0
+    for got, want, xb, has in pairs:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
+                                   atol=2e-4)
+        np.testing.assert_array_equal(got.numpy()[~has], xb[~has])
+
+
+def test_float64_solve_eigendecomposes_under_auto():
+    """"auto" takes Newton-Schulz for float32 only: a float64 solve goes to
+    eigh and matches the JAX package's float64 solve closely."""
+    rng = np.random.default_rng(74)
+    k = 8
+    (a, g, xb, has), = _solve_case(rng, k, (20,), (3,))
+    a64, g64, xb64 = (x.astype(np.float64) for x in (a, g, xb))
+    inflats = ((k - 1) / 1.6,) * 2 + ((k - 1) / 1.1,)
+    kw = dict(rtpp_alpha=(0.9, 0.0, 0.5), rtps_alpha=(0.0, 0.9, 0.5),
+              solver_dtype=torch.float64)
+    before = dict(ns_kernel.LAUNCHES)
+    xa = solver.letkf_solve_group_from_normal(
+        torch.from_numpy(a64), torch.from_numpy(g64), torch.from_numpy(xb64),
+        inflats, torch.from_numpy(has), **kw)
+    assert ns_kernel.LAUNCHES == before and xa.dtype == torch.float64
+    jsolver.set_eigh_backend("xla")
+    kw["solver_dtype"] = jnp.float64
+    xa_j = jsolver.letkf_solve_group_from_normal(
+        jnp.asarray(a64), jnp.asarray(g64), jnp.asarray(xb64), inflats,
+        jnp.asarray(has), **kw)
+    np.testing.assert_allclose(xa.numpy(), np.asarray(xa_j), rtol=1e-10,
+                               atol=1e-10)
+
+
+def test_letkf_solve_batch_matches_jax():
+    """From whitened obs: the weight factors and the solve, both backends."""
+    rng = np.random.default_rng(75)
+    b, k, n = 16, 7, 11
+    yb = rng.normal(size=(b, k, n)).astype(np.float32)
+    yo = rng.normal(size=(b, n)).astype(np.float32)
+    xb = rng.normal(3, 1, (b, k)).astype(np.float32)
+    has = np.arange(b) % 5 != 0
+    for backend in ("xla", "jacobi"):
+        solver.set_eigh_backend(backend)
+        jsolver.set_eigh_backend(backend)
+        xa = solver.letkf_solve_batch(
+            torch.from_numpy(xb), torch.from_numpy(yo), torch.from_numpy(yb),
+            (k - 1) / 1.2, torch.from_numpy(has), use_rtps=True,
+            rtps_alpha=0.8)
+        xa_j = jsolver.letkf_solve_batch(
+            jnp.asarray(xb), jnp.asarray(yo), jnp.asarray(yb), (k - 1) / 1.2,
+            jnp.asarray(has), use_rtps=True, rtps_alpha=0.8)
+        np.testing.assert_allclose(xa.numpy(), np.asarray(xa_j), rtol=2e-4,
+                                   atol=2e-4, err_msg=backend)
+        np.testing.assert_array_equal(xa.numpy()[~has], xb[~has])
+
+
+def test_set_eigh_backend_validates():
+    with pytest.raises(ValueError):
+        solver.set_eigh_backend("magma")

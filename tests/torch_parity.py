@@ -81,11 +81,12 @@ def to_port(static, obs):
     return from_reference(dataclasses.asdict(static), obs._asdict())
 
 
-def cycle_case(nobs_vr=9000, nx=24, nz=6):
+def cycle_case(nobs_vr=9000, nx=24, nz=6, k=K_CYCLE):
     """tests/test_cycle.py::_case: synop 300 (dense) and vr (bucketed).
 
     Returns ``(pts, xb_v, [(static, obs)])`` from the JAX package's
-    generators; ``xb_v`` ``[B, V, K]`` gives every variable its own field.
+    generators, with ``k`` members; ``xb_v`` ``[B, V, k]`` gives every
+    variable its own field.
     """
     from cwbnwp_letkf_tpu.config import MAX_VARS
     from cwbnwp_letkf_tpu.obs.base import PlatformStatic
@@ -95,8 +96,7 @@ def cycle_case(nobs_vr=9000, nx=24, nz=6):
 
     rng = np.random.default_rng(3)
     pts = idealized_grid(nx, nx, nz, dx_m=50e3)
-    truth, xb = correlated_ensemble(rng, pts, K_CYCLE, n_bumps=6,
-                                    length_m=2e5)
+    truth, xb = correlated_ensemble(rng, pts, k, n_bumps=6, length_m=2e5)
 
     def radii(plat):
         h = [-1.0] * MAX_VARS
@@ -126,13 +126,65 @@ def cycle_case(nobs_vr=9000, nx=24, nz=6):
     return pts, xb_v.astype(np.float32), plats
 
 
-def group_fields():
+def group_fields(k=K_CYCLE):
     """Per group ``(ivars, inflats, rtpp_alpha, rtps_alpha)`` for GROUPS_SPEC."""
     out = []
     for ivars, _ in GROUPS_SPEC:
         nv = len(ivars)
         out.append((tuple(ivars),
-                    tuple((K_CYCLE - 1) / (1.6 if iv < 3 else 1.1)
-                          for iv in ivars),
+                    tuple((k - 1) / (1.6 if iv < 3 else 1.1) for iv in ivars),
                     (0.9,) * nv, (0.95,) * nv))
     return out
+
+
+def spd_case(rng, b, k, cond=10.0):
+    """tests/test_pallas_eigh.py::_spd: ``A A^T + cond I``, float32."""
+    a = rng.normal(size=(b, k, k)).astype(np.float32)
+    return a @ a.transpose(0, 2, 1) + cond * np.eye(k, dtype=np.float32)
+
+
+def assert_eigh_close(lam, v, a, lam_ref=None):
+    """The Jacobi tolerances of tests/test_pallas_eigh.py:28-35.
+
+    Reconstruction ``max|V diag(lam) V^T - A| < 3e-5 max|A|``, orthogonality
+    ``max|V^T V - I| < 1e-5``, sorted ``lam`` against float64 ``eigvalsh`` at
+    rtol 1e-4 (atol ``3e-5 max|A|``), and, given ``lam_ref`` in the same
+    order, ``lam`` against it element by element at the same tolerance.
+    """
+    lam, v, a = (np.asarray(x, np.float64) for x in (lam, v, a))
+    k = a.shape[-1]
+    scale = np.abs(a).max()
+    rec = np.einsum("bik,bk,bjk->bij", v, lam, v)
+    assert np.abs(rec - a).max() < 3e-5 * scale
+    assert np.abs(np.einsum("bik,bjk->bij", v, v) - np.eye(k)).max() < 1e-5
+    np.testing.assert_allclose(np.sort(lam, -1), np.linalg.eigvalsh(a),
+                               rtol=1e-4, atol=3e-5 * scale)
+    if lam_ref is not None:
+        np.testing.assert_allclose(lam, np.asarray(lam_ref, np.float64),
+                                   rtol=1e-4, atol=3e-5 * scale)
+
+
+def assert_k96_sweep_level(jacobi_eigh, device):
+    """The known accuracy of seven sweeps at k=96, held in place.
+
+    On ``G G^T + 10 I`` at k=96 (``spd_case``, 33 matrices) seven sweeps
+    and the polish leave a reconstruction error of 4.0e-5 max|A|, the TPU
+    kernel's algorithm as it stands, above the 3e-5 of
+    tests/test_pallas_eigh.py; six leave 4.6e-4 and eight 1.1e-6.  Seven
+    sweeps must stay below 5e-5, so one sweep fewer fails, and eight must
+    meet 3e-5.
+    """
+    import torch
+
+    a_np = spd_case(np.random.default_rng(296), 33, 96)
+    a = torch.from_numpy(a_np).to(device)
+    scale = float(np.abs(a_np).max())
+    for sweeps, tol in ((7, 5e-5), (8, 3e-5)):
+        lam, v = jacobi_eigh(a, sweeps=sweeps)
+        lam, v = lam.cpu().double(), v.cpu().double()
+        rec = float(((v * lam[:, None, :]) @ v.transpose(1, 2)
+                     - torch.from_numpy(a_np).double()).abs().max())
+        orth = float((v.transpose(1, 2) @ v
+                      - torch.eye(96, dtype=torch.float64)).abs().max())
+        assert rec < tol * scale, (sweeps, rec / scale)
+        assert orth < 1e-5, (sweeps, orth)
