@@ -25,6 +25,11 @@ BUILD_DIR = _PKG / "_build"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+#: peaks of one NVIDIA H100 SXM (NVIDIA's data sheet): float32 outside the
+#: tensor cores, and device memory
+PEAK_FP32_FLOPS = 67e12
+PEAK_HBM_BYTES_PER_S = 3.35e12
+
 _libs: dict = {}
 
 
@@ -83,6 +88,13 @@ def load(source: Path) -> ctypes.CDLL:
     if lib is None:
         lib = _libs[source] = ctypes.CDLL(str(build(source)[0]))
     return lib
+
+
+def bound_ms(flop: float, nbytes: float) -> float:
+    """The least time in ms an H100 could take for ``flop`` float32
+    operations on ``nbytes`` of inputs and outputs: the larger of operations
+    over the peak rate and bytes over the memory rate."""
+    return 1e3 * max(flop / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES_PER_S)
 
 
 def check_batch(a: torch.Tensor, max_k: int) -> None:

@@ -35,6 +35,26 @@ def kernel_for(k: int) -> str:
     return "parallel" if k >= 4 and k % 2 == 0 else "cyclic"
 
 
+def work(name: str, batch: int, k: int, sweeps: int = 7):
+    """``(flop, bytes)`` of ``sweeps`` Jacobi sweeps over a ``[batch, k, k]``
+    batch by kernel ``name`` (``"parallel"`` or ``"cyclic"``).
+
+    A rotation ``(x, y) <- (c x - s y, s x + c y)`` of one pair is 6 flop.  A
+    round of the round-robin order rotates ``k^2`` pairs of A (rows, then
+    columns) and ``k^2 / 2`` of V, and a sweep is ``k - 1`` rounds; a
+    rotation of the sequential order rotates ``3 k`` pairs, and a sweep is
+    ``k (k - 1) / 2`` rotations.  The rotation angles are lower order and
+    not counted.  Bytes: A read once, V and ``lam`` written once, float32.
+    """
+    if name == "parallel":
+        pairs = sweeps * (k - 1) * (3 * k * k // 2)
+    elif name == "cyclic":
+        pairs = sweeps * (k * (k - 1) // 2) * 3 * k
+    else:
+        raise ValueError(f"unknown kernel {name!r}")
+    return 6 * pairs * batch, 4 * (2 * k * k + k) * batch
+
+
 def _load(name: str):
     fn = _fns.get(name)
     if fn is None:

@@ -1,8 +1,9 @@
 """Launch the CUDA Newton-Schulz kernels (``csrc/ns_invsqrt.cu``).
 
 The kernels compute ``Z ~= (a_obs + inflat*I)^(-1/2)`` for a batch of
-float32 ``[k, k]`` matrices, one thread block per matrix, each matrix
-stopping on its own residual by the plain versions' rule.  Two compile-time
+float32 ``[k, k]`` matrices, one thread block per matrix (a register tile of
+the three products per thread, W, Z and one product in shared memory), each
+matrix stopping on its own residual by the plain versions' rule.  Two compile-time
 variants of one kernel, selected by ``packing``:
 
 - ``"trio"`` (K1): ``Z' = T Z``, ``W' = T (T W)``; plain version
@@ -25,13 +26,24 @@ from . import cuda_build
 #: kernel launches per packing since import (or since a caller reset them)
 LAUNCHES = {"trio": 0, "rmul": 0}
 
-#: largest ensemble size the kernel takes (four padded k x k fp32 buffers
-#: must fit one block's shared memory)
+#: largest ensemble size the kernel takes (three padded k x k fp32 buffers
+#: of each of two resident blocks must fit an SM's shared memory)
 MAX_K = 96
 
 SOURCE = cuda_build.CSRC / "ns_invsqrt.cu"
 
 _fn = None
+
+
+def work(batch: int, k: int, steps: float):
+    """``(flop, bytes)`` of one solve of a ``[batch, k, k]`` batch that takes
+    ``steps`` Newton-Schulz steps per matrix (the mean, where they differ).
+
+    A step is three ``k x k`` products of ``2 k^3`` flop each; the scale,
+    the residual and ``T`` are lower order and not counted.  Bytes: ``a_obs``
+    read once and ``z`` written once, float32.
+    """
+    return 3 * 2 * k ** 3 * steps * batch, 2 * 4 * k * k * batch
 
 
 def _load():
@@ -44,6 +56,24 @@ def _load():
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def config(k: int, packing: str = "trio") -> dict:
+    """What a launch at ensemble size ``k`` uses on the current card:
+    ``threads`` per block, dynamic ``smem_bytes``, ``registers`` per thread,
+    resident ``blocks_per_sm`` and the register tile's ``tile_rows``.
+    Builds the library if need be; launches nothing."""
+    if packing not in LAUNCHES:
+        raise ValueError(f"unknown packing {packing!r}")
+    fn = cuda_build.load(SOURCE).ns_invsqrt_config
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 5)()
+    rc = fn(int(k), int(packing == "rmul"), out)
+    if rc != 0:
+        raise RuntimeError(f"ns_invsqrt_config failed: CUDA error {rc}")
+    return dict(zip(("threads", "smem_bytes", "registers", "blocks_per_sm",
+                     "tile_rows"), out))
 
 
 def launch(a_obs: torch.Tensor, inflat: float, *, tol: float = 1e-4,

@@ -66,6 +66,85 @@ def test_kernel_ill_conditioned(cuda, k):
                     same_iteration=False)
 
 
+@pytest.mark.parametrize("packing", ["trio", "rmul"])
+@pytest.mark.parametrize("b", [1, 5, 130])
+@pytest.mark.parametrize("k", [2, 3, 9, 41, 95])
+def test_kernel_tile_edges(cuda, k, b, packing):
+    """Ensemble sizes that fill no whole register tile (4 or 8 rows by 4
+    columns) and batches of one, a few and about one block per SM: the zero
+    padding must not leak into the k x k result."""
+    rng = np.random.default_rng(1000 * k + b)
+    a_np, _ = normal_case(rng, b, k, 2 * k)
+    inflat = (k - 1) / 1.1
+    a = torch.from_numpy(a_np).to(cuda)
+    z, iters, resid = ns_kernel.launch(a, inflat, packing=packing)
+    torch.cuda.synchronize()
+    assert tuple(z.shape) == (b, k, k) and tuple(iters.shape) == (b,)
+    assert float(resid.max()) <= 1e-4 and 1 <= int(iters.min())
+    plain = solver.ns_invsqrt_rmul if packing == "rmul" else solver.ns_invsqrt
+    assert_ns_close(z.cpu().numpy(), plain(a, inflat).cpu().numpy(), a_np,
+                    inflat, same_iteration=False)
+
+
+@pytest.mark.parametrize("packing", ["trio", "rmul"])
+@pytest.mark.parametrize("k", [9, 40, 96])
+def test_kernel_stops_each_matrix_on_its_own(cuda, k, packing):
+    """Matrices without obs (``a_obs = 0``: the fewest steps) beside
+    ill-conditioned ones (the most): each matrix's Z, step count and
+    residual are what the same matrix gives in a batch of one."""
+    rng = np.random.default_rng(7)
+    a_np = ill_conditioned_case(rng, 12, k)
+    a_np[::3] = 0.0
+    a_np[1::3] *= 1e-3
+    inflat = (k - 1) / 1.1
+    a = torch.from_numpy(a_np).to(cuda)
+    z, iters, resid = ns_kernel.launch(a, inflat, packing=packing)
+    assert len(set(iters.tolist())) > 1          # they do stop apart
+    for i in range(a.shape[0]):
+        z1, iters1, resid1 = ns_kernel.launch(a[i:i + 1], inflat,
+                                              packing=packing)
+        assert int(iters1) == int(iters[i])
+        assert float(resid1) == float(resid[i])
+        assert torch.equal(z1[0], z[i])
+
+
+@pytest.mark.parametrize("packing", ["trio", "rmul"])
+@pytest.mark.parametrize("k", [9, 40, 96])
+def test_kernel_nan_matrix_leaves_its_neighbours(cuda, k, packing):
+    """A matrix with a NaN stops, reports a NaN residual and a NaN Z; every
+    other matrix of the batch equals its value in the batch without it."""
+    rng = np.random.default_rng(8)
+    a_np, _ = normal_case(rng, 7, k, 2 * k)
+    inflat = (k - 1) / 1.1
+    clean = torch.from_numpy(a_np).to(cuda)
+    dirty = clean.clone()
+    dirty[3, k // 2, 0] = float("nan")
+    z0, iters0, resid0 = ns_kernel.launch(clean, inflat, packing=packing)
+    z, iters, resid = ns_kernel.launch(dirty, inflat, packing=packing)
+    keep = [i for i in range(7) if i != 3]
+    assert torch.equal(z[keep], z0[keep])
+    assert torch.equal(iters[keep], iters0[keep])
+    assert torch.equal(resid[keep], resid0[keep])
+    assert bool(torch.isnan(resid[3])) and int(iters[3]) == 1
+    assert bool(torch.isnan(z[3]).any())
+
+
+def test_kernel_config_and_work(cuda):
+    """What a launch uses at the bench and production sizes: whole warps (a
+    multiple of four of them at k=96, one share per scheduler), the three
+    buffers in shared memory, and no launch made."""
+    before = dict(ns_kernel.LAUNCHES)
+    for k in (40, 96):
+        for packing in ("trio", "rmul"):
+            cfg = ns_kernel.config(k, packing)
+            assert cfg["threads"] % 32 == 0 and cfg["threads"] >= k * k // 32
+            assert cfg["blocks_per_sm"] >= 1 and 0 < cfg["registers"] <= 255
+            assert cfg["smem_bytes"] >= 3 * 4 * k * k
+    assert ns_kernel.config(96)["threads"] % 128 == 0
+    assert ns_kernel.config(96)["smem_bytes"] <= 227 * 1024
+    assert ns_kernel.LAUNCHES == before
+
+
 def test_ns_z_dispatches_cuda_to_kernel(cuda):
     rng = np.random.default_rng(5)
     a_np, _ = normal_case(rng, 9, 40, 80)
