@@ -31,7 +31,7 @@ from .bucketed import (auto_block_size, default_max_blocks, hilbert3,
                        hilbert_blocks, pad_last, required_max_blocks, sq_norm3)
 from .dense import centered_r2, fused_platform_table, terms_from_r2
 from .neighbors import normalize_coords
-from .solver import letkf_solve_cycle_from_normal
+from .solver import check_ensemble_size, letkf_solve_cycle_from_normal
 from .update import (BUCKET_MIN_RECORDS, BucketBudget, DevicePlatform,
                      dense_table)
 
@@ -379,6 +379,7 @@ def update_points_cycle(
     """
     q = points_xyz
     b, v_tot, k = xb.shape
+    check_ensemble_size(k, xb.device)  # the cycle solves in float32
     if q.shape != (b, 3):
         raise ValueError(f"points_xyz must be [{b}, 3], got {tuple(q.shape)}")
     sizes = [len(grp.ivars) for grp in groups]

@@ -1,11 +1,14 @@
 """Launch the CUDA Jacobi eigensolvers (``csrc/jacobi_eigh.cu``).
 
-Two kernels, one thread block per matrix, A and V in shared memory:
+Two kernels, A and V in shared memory:
 
-- ``"parallel"`` (K3, even k >= 4): the Brent-Luk round-robin order; plain
-  version :func:`cwbnwp_letkf_torch.ops.jacobi_eigh.jacobi_parallel`;
-- ``"cyclic"`` (K4, odd k or k < 4): the sequential cyclic-by-row order;
-  plain version :func:`cwbnwp_letkf_torch.ops.jacobi_eigh.jacobi_cyclic`.
+- ``"parallel"`` (K3, even k >= 4): the Brent-Luk round-robin order, a warp
+  per matrix (one block per matrix at k = 96), the pairing by the closed
+  form of :func:`ring_pairing`; plain version
+  :func:`cwbnwp_letkf_torch.ops.jacobi_eigh.jacobi_parallel`;
+- ``"cyclic"`` (K4, odd k or k < 4): the sequential cyclic-by-row order, one
+  thread block per matrix; plain version
+  :func:`cwbnwp_letkf_torch.ops.jacobi_eigh.jacobi_cyclic`.
 
 :func:`cwbnwp_letkf_torch.ops.jacobi_eigh.jacobi_eigh` sends CUDA tensors
 here.  The library is built by :mod:`.cuda_build` at first use.
@@ -33,6 +36,27 @@ _fns: dict = {}
 def kernel_for(k: int) -> str:
     """The kernel the TPU package's ``jacobi_eigh`` dispatch picks for ``k``."""
     return "parallel" if k >= 4 and k % 2 == 0 else "cyclic"
+
+
+def ring_pairing(k: int, r: int) -> list:
+    """The round-robin pairing ``[top | bot]`` after ``r`` rounds, by the
+    closed form K3 computes it with (``ring_index`` in the source).
+
+    Every index but ``top[0] = 0`` moves one step a round along a ring of
+    ``k - 1`` positions ``[top_1 .. top_{m-1}, bot_{m-1} .. bot_0]``; after
+    ``r`` rounds ring position ``u`` holds the index that started at
+    ``x = (u - r) mod (k - 1)``, which is ``x + 1`` for ``x < m - 1`` and
+    ``3m - 2 - x`` otherwise.  Equals ``jacobi_eigh.round_robin(k, r)[r]``.
+    """
+    m = k // 2
+
+    def ring_index(u):
+        x = (u - r) % (k - 1)
+        return x + 1 if x < m - 1 else 3 * m - 2 - x
+
+    top = [0] + [ring_index(i - 1) for i in range(1, m)]
+    bot = [ring_index(k - 2 - i) for i in range(m)]
+    return top + bot
 
 
 def work(name: str, batch: int, k: int, sweeps: int = 7):

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from . import ns_kernel
+from . import eigh_kernel, ns_kernel
 from .jacobi_eigh import jacobi_eigh
 
 
@@ -138,6 +138,25 @@ def _use_ns(a_obs: torch.Tensor) -> bool:
     """Whether the Newton-Schulz inverse-sqrt path handles this solve."""
     return (_EIGH_BACKEND in ("auto", "ns") and a_obs.dtype == torch.float32
             and a_obs.ndim == 3)
+
+
+def check_ensemble_size(k: int, device, dtype=torch.float32) -> None:
+    """Refuse, before any work, an ensemble the card's kernels do not take.
+
+    A float32 solve on a CUDA device under ``"auto"``, ``"ns"`` or
+    ``"jacobi"`` goes to the Newton-Schulz or Jacobi kernels, which hold a
+    k x k matrix in one block's shared memory: ``ValueError`` for
+    ``k > MAX_K`` there.  A CPU solve, a float64 solve and ``"xla"`` take any
+    k.  The entry points call this first, so a refused k fails before the
+    planning and the accumulation, not inside the first chunk's solve.
+    """
+    max_k = min(ns_kernel.MAX_K, eigh_kernel.MAX_K)
+    if (torch.device(device).type == "cuda" and dtype == torch.float32
+            and _EIGH_BACKEND != "xla" and k > max_k):
+        raise ValueError(
+            f"k={k} members: the CUDA solve kernels take k <= {max_k} "
+            f"(ns_kernel.MAX_K, eigh_kernel.MAX_K); use the CPU, a float64 "
+            f"solve or set_eigh_backend('xla') for a larger ensemble")
 
 
 def _ns_z(a_obs: torch.Tensor, inflat: float):

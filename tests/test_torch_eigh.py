@@ -69,6 +69,17 @@ def test_round_robin_meets_every_pair_once_per_sweep():
     assert tables[0].tolist() == list(range(k))
 
 
+@pytest.mark.parametrize("k", [4, 6, 8, 40, 96])
+def test_ring_pairing_closed_form_matches_round_robin(k):
+    """K3's closed-form pairing equals the plain version's table at every
+    round of seven sweeps, the last row (the order the output is gathered
+    in) included."""
+    rounds = 7 * (k - 1)
+    tables = round_robin(k, rounds).tolist()
+    for r in range(rounds + 1):
+        assert eigh_kernel.ring_pairing(k, r) == tables[r], (k, r)
+
+
 def test_jacobi_eigh_takes_plain_version_on_cpu():
     a = torch.from_numpy(spd_case(np.random.default_rng(90), 3, 8))
     before = dict(eigh_kernel.LAUNCHES)

@@ -197,8 +197,8 @@ def test_rmul_kernel_matches_plain(cuda, k):
 @pytest.mark.parametrize("k", KS)
 def test_jacobi_kernel_matches_plain(cuda, k):
     """K3 (even k >= 4) and K4 (odd or tiny k) against their plain versions
-    on the card: the sweeps' eigenpairs element by element, in the same
-    order, on the inputs of tests/test_pallas_eigh.py; then the polished
+    on the card: the sweeps' eigenpairs bit for bit, in the same order, on
+    the inputs of tests/test_pallas_eigh.py; then the polished
     eigenpairs of the solver's ``A = a_obs + inflat I`` within that file's
     tolerances (:28-35).  (On ``G G^T + 10 I`` at k=96 seven sweeps leave a
     reconstruction error of 4e-5 max|A| after the polish, in the plain
@@ -212,13 +212,25 @@ def test_jacobi_kernel_matches_plain(cuda, k):
     torch.cuda.synchronize()
     assert eigh_kernel.LAUNCHES == {**before, name: before[name] + 1}
     lam_p, v_p = plain(a)
-    torch.testing.assert_close(lam, lam_p, rtol=1e-4,
-                               atol=3e-5 * float(a.abs().max()))
-    torch.testing.assert_close(v, v_p, rtol=0, atol=1e-5)
+    assert torch.equal(lam, lam_p) and torch.equal(v, v_p)
     a_obs, _ = normal_case(rng, 33, k, 2 * k)
     a_np = a_obs + (k - 1 if k > 1 else 1) / 1.6 * np.eye(k, dtype=np.float32)
     lam_w, v_w = jacobi_eigh(torch.from_numpy(a_np).to(cuda))
     assert_eigh_close(lam_w.cpu().numpy(), v_w.cpu().numpy(), a_np)
+
+
+@pytest.mark.parametrize("b", [1, 5, 33, 130])
+@pytest.mark.parametrize("k", [4, 6, 38, 40, 42, 94, 96])
+def test_jacobi_parallel_partition_edges(cuda, k, b):
+    """K3 bit for bit against its plain version where its partition has
+    edges: a block of four warp-matrices partly filled (b = 1, 5, 33, 130),
+    the compile-time k = 40 and 96 and the run-time k around them, k = 94
+    with three matrices a block, and k = 4, 6 with most lanes idle."""
+    rng = np.random.default_rng(400 + k + b)
+    a = torch.from_numpy(spd_case(rng, b, k)).to(cuda)
+    lam, v = eigh_kernel.launch(a)
+    lam_p, v_p = jacobi_parallel(a)
+    assert torch.equal(lam, lam_p) and torch.equal(v, v_p)
 
 
 def test_jacobi_kernel_k96_sweep_level(cuda):

@@ -289,3 +289,24 @@ def test_letkf_solve_batch_matches_jax():
 def test_set_eigh_backend_validates():
     with pytest.raises(ValueError):
         solver.set_eigh_backend("magma")
+
+
+@pytest.mark.parametrize("device,k,backend,dtype,ok", [
+    ("cpu", 96, "auto", torch.float32, True),
+    ("cpu", 97, "auto", torch.float32, True),
+    ("cuda", 96, "auto", torch.float32, True),
+    ("cuda", 97, "auto", torch.float32, False),
+    ("cuda", 97, "jacobi", torch.float32, False),
+    ("cuda", 97, "xla", torch.float32, True),
+    ("cuda", 97, "auto", torch.float64, True),
+])
+def test_check_ensemble_size(device, k, backend, dtype, ok):
+    """A float32 solve on a card under a kernel backend refuses k > 96 (the
+    kernels' MAX_K); the CPU, float64 and "xla" take any k.  No tensor is
+    made, so the CUDA cases run without a card."""
+    solver.set_eigh_backend(backend)
+    if ok:
+        solver.check_ensemble_size(k, torch.device(device), dtype)
+    else:
+        with pytest.raises(ValueError, match=f"k={k}.*k <= 96"):
+            solver.check_ensemble_size(k, torch.device(device), dtype)

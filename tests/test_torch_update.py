@@ -232,3 +232,37 @@ def test_unported_options_raise(case):
     with pytest.raises(ValueError):
         update.update_points(torch.from_numpy(xb_v[:, 0]), q, tplats, 0,
                              inflat=5.0, weight_function=0, method="kdtree")
+
+
+class _Refused(Exception):
+    pass
+
+
+@pytest.mark.parametrize("entry", ["update_points", "update_points_group",
+                                   "update_points_cycle"])
+def test_entry_checks_ensemble_size_first(entry, monkeypatch):
+    """Each entry point asks ``solver.check_ensemble_size`` about its k and
+    dtype before it plans or accumulates anything: the check is the first
+    thing to fail, even with no platforms and no points."""
+    from cwbnwp_letkf_torch.ops import cycle
+
+    seen = []
+
+    def refuse(k, device, dtype=torch.float32):
+        seen.append((k, torch.device(device).type, dtype))
+        raise _Refused
+
+    module = cycle if entry == "update_points_cycle" else update
+    monkeypatch.setattr(module, "check_ensemble_size", refuse)
+    xb = torch.zeros((0, 97) if entry == "update_points" else (0, 1, 97))
+    pts = torch.zeros((0, 3))
+    with pytest.raises(_Refused):
+        if entry == "update_points":
+            update.update_points(xb, pts, [], 0, inflat=1.0, weight_function=0)
+        elif entry == "update_points_group":
+            update.update_points_group(xb, pts, [], [0], inflats=[1.0],
+                                       weight_function=0, rtpp_alpha=[0.0],
+                                       rtps_alpha=[0.0])
+        else:
+            cycle.update_points_cycle(xb, pts, [], [], weight_function=0)
+    assert seen == [(97, "cpu", torch.float32)]
