@@ -8,8 +8,9 @@ Phases, in order; any failure raises and the exit code is not 0:
 0. the card: name and power limit, torch and CUDA versions;
 1. build both kernel libraries from ``cwbnwp_letkf_torch/csrc``, one
    ``nvcc`` per source, started together; print the compiler's report and
-   what a Newton-Schulz launch uses at k=40 and k=96 (threads, shared
-   memory, registers, resident blocks per SM);
+   what a Newton-Schulz launch uses at k=40 and k=96 and a Jacobi launch at
+   the shapes of phase 6 (threads, shared memory, registers, resident
+   blocks, and for the Jacobi kernels resident matrices, per SM);
 2. K1, the Newton-Schulz kernel, against its plain PyTorch version at the
    main path's stacked shape ``[12288, 40, 40]`` and at ``[2048, 96, 96]``,
    on seeded normal matrices and on ill-conditioned dense-obs ones, with
@@ -42,7 +43,10 @@ Phases, in order; any failure raises and the exit code is not 0:
 8. entries (b) and (c) on the full grid: ``update_points_group`` for (U, V)
    under ``"jacobi"`` (K3), held against phase 7's columns; and
    ``update_points`` for T on a 41-member ensemble under ``"jacobi"`` (K4)
-   and under ``"auto"`` (K1 at k=41), held against each other.
+   and under ``"auto"`` (K1 at k=41), held against each other; under
+   ``"jacobi"`` again, warm, timed, equal to the first run; and K4 bit for
+   bit against its plain version on the first real ``[4096, 41, 41]``
+   stack the entry gave it.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after; the launches made to compare a kernel with its plain
@@ -100,10 +104,11 @@ JACOBI_SHAPES = {"jacobi_parallel": ((4096, K), (2048, 96)),
 #: field sits on a 290 offset, so ``max|xa|`` would scale the limit by the
 #: offset, not by what the solve moves
 XA_RTOL = 5e-4
-#: K3's polished reconstruction bound on phase 4's real first-chunk
-#: matrices, in max|A|: seven sweeps leave 4.6e-5 there, above the 3e-5 of
-#: tests/test_pallas_eigh.py's synthetic inputs (the TPU kernel's algorithm;
-#: the kernel equals its plain version bit for bit)
+#: K3's and K4's polished reconstruction bound on real first-chunk matrices
+#: (phase 4's at k=40, entry (c)'s at k=41), in max|A|: seven sweeps leave
+#: 4.6e-5 at k=40, above the 3e-5 of tests/test_pallas_eigh.py's synthetic
+#: inputs (the TPU kernel's algorithm; the kernels equal their plain
+#: versions bit for bit)
 REAL_REC_TOL = 1e-4
 #: the eigen solves of phase 4's control: (label, sweeps, polish)
 EIGH_CONTROLS = (("7 sweeps + polish (the path)", 7, True),
@@ -173,6 +178,25 @@ def timed_launches(module):
     module.launch = timed
     try:
         yield events
+    finally:
+        module.launch = launch
+
+
+@contextlib.contextmanager
+def first_input(module):
+    """Under it, a copy of the first batch given to ``module.launch`` is
+    kept in the yielded list (which stays empty if there is none)."""
+    got = []
+    launch = module.launch
+
+    def capture(a, *args, **kwargs):
+        if not got:
+            got.append(a.clone())
+        return launch(a, *args, **kwargs)
+
+    module.launch = capture
+    try:
+        yield got
     finally:
         module.launch = launch
 
@@ -751,7 +775,7 @@ def phase_jacobi_cycle(dev, pts_d, xb_d, truth_d, xa_ns, plats):
 
 def phase_updates(dev, pts_d, xb_d, xa_jac, dplats, nz):
     """Phase 8: entries (b) and (c); returns the K4 launch count."""
-    from cwbnwp_letkf_torch.ops import solver, update
+    from cwbnwp_letkf_torch.ops import eigh_kernel, solver, update
 
     b = pts_d.shape[0]
     n_chunks = -(-b // CHUNK)
@@ -798,7 +822,8 @@ def phase_updates(dev, pts_d, xb_d, xa_jac, dplats, nz):
         try:
             reset_counts()
             t0 = time.time()
-            xa, diag = update.update_points(xb41, q, dplats41, ivar, **kw)
+            with first_input(eigh_kernel) as stacks:
+                xa, diag = update.update_points(xb41, q, dplats41, ivar, **kw)
             torch.cuda.synchronize(dev)
             print(f"  (c) update_points T, k={K_ODD}, {backend}: "
                   f"{time.time() - t0:.3f} s, overflow "
@@ -806,6 +831,18 @@ def phase_updates(dev, pts_d, xb_d, xa_jac, dplats, nz):
                   f"{float(diag['ns_residual']):.3e}")
             counts = read_counts()
             check_only(counts, name, n_chunks, f"(c) {backend} (one per chunk)")
+            if backend == "jacobi":
+                t0 = time.time()
+                with timed_launches(eigh_kernel) as events:
+                    xa_w, _ = update.update_points(xb41, q, dplats41, ivar, **kw)
+                torch.cuda.synchronize(dev)
+                wall = time.time() - t0
+                check(torch.equal(xa_w, xa), "(c) jacobi: warm run differs")
+                del xa_w
+                print(f"  (c) warm run: {wall:.3f} s, K4 "
+                      f"{launch_seconds(events):.4f} s on the card in "
+                      f"{len(events)} launches (CUDA events around each)")
+                real = stacks[0]
         finally:
             solver.set_eigh_backend("auto")
         check(int(diag["bucket_overflow"]) == 0, f"(c) {backend}: overflow")
@@ -816,6 +853,10 @@ def phase_updates(dev, pts_d, xb_d, xa_jac, dplats, nz):
         check(rmse_a < rmse_b, f"(c) {backend}: analysis RMSE not lower")
         out[backend] = (xa, counts[name])
     check_close(out["jacobi"][0], out["auto"][0], xb41, "(c) K4 vs K1")
+    check(tuple(real.shape) == (CHUNK, K_ODD, K_ODD),
+          f"(c): first K4 stack {tuple(real.shape)}")
+    compare_jacobi(real, f"(c) first chunk, {list(real.shape)}", timed=False,
+                   rec_tol=REAL_REC_TOL)
     return out["jacobi"][1]
 
 
@@ -847,6 +888,9 @@ def main():
         for packing in ns_kernel.LAUNCHES:
             print(f"  ns_invsqrt {packing} at k={k}: "
                   f"{ns_kernel.config(k, packing)}")
+    for name, shapes in JACOBI_SHAPES.items():
+        for _, k in shapes:
+            print(f"  {name} at k={k}: {eigh_kernel.config(k)}")
 
     record = {}
     with torch.inference_mode():

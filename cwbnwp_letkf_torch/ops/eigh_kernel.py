@@ -6,8 +6,13 @@ Two kernels, A and V in shared memory:
   per matrix (one block per matrix at k = 96), the pairing by the closed
   form of :func:`ring_pairing`; plain version
   :func:`cwbnwp_letkf_torch.ops.jacobi_eigh.jacobi_parallel`;
-- ``"cyclic"`` (K4, odd k or k < 4): the sequential cyclic-by-row order, one
-  thread block per matrix; plain version
+- ``"cyclic"`` (K4, odd k or k < 4): the sequential cyclic-by-row order,
+  16 lanes per matrix at k = 41 (two matrices a warp) and a warp per matrix
+  at any other k, up to four warps a block; each lane keeps A's row and
+  column p, V's column p and A's diagonal at the indices it owns in
+  registers, computes each rotation's 2x2 itself from entries shuffled
+  ahead from their owner, and ends each rotation with one ``__syncwarp``;
+  plain version
   :func:`cwbnwp_letkf_torch.ops.jacobi_eigh.jacobi_cyclic`.
 
 :func:`cwbnwp_letkf_torch.ops.jacobi_eigh.jacobi_eigh` sends CUDA tensors
@@ -77,6 +82,25 @@ def work(name: str, batch: int, k: int, sweeps: int = 7):
     else:
         raise ValueError(f"unknown kernel {name!r}")
     return 6 * pairs * batch, 4 * (2 * k * k + k) * batch
+
+
+def config(k: int) -> dict:
+    """What a launch at ensemble size ``k`` uses on the current card, for
+    the kernel :func:`kernel_for` picks: ``threads`` and ``matrices`` per
+    block, dynamic ``smem_bytes``, ``registers`` per thread, resident
+    ``blocks_per_sm`` and ``matrices_per_sm``.  Builds the library if need
+    be; launches nothing."""
+    fn = cuda_build.load(SOURCE).jacobi_config
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 5)()
+    rc = fn(int(kernel_for(k) == "cyclic"), int(k), out)
+    if rc != 0:
+        raise RuntimeError(f"jacobi_config failed: CUDA error {rc}")
+    cfg = dict(zip(("threads", "smem_bytes", "registers", "matrices",
+                    "blocks_per_sm"), out))
+    cfg["matrices_per_sm"] = cfg["matrices"] * cfg["blocks_per_sm"]
+    return cfg
 
 
 def _load(name: str):

@@ -15,7 +15,7 @@ spills of each build's kernels from its ``.log``.  Then, at the kernel's
 bound: each product is rounded on its own, so one flop is one instruction
 and twice the bound is the issue floor.  ``--sass`` writes ``cuobjdump -sass``
 of the tree's build and prints the instruction mix of each kernel's longest
-loop.  Exits 1 if a build differs from the plain version.
+and innermost loops.  Exits 1 if a build differs from the plain version.
 """
 from __future__ import annotations
 
@@ -36,22 +36,34 @@ from cwbnwp_letkf_torch.ops.jacobi_eigh import jacobi_cyclic, jacobi_parallel
 
 def print_loop_mix(sass: str) -> None:
     """For each kernel in ``cuobjdump -sass`` text, the instruction mix of
-    its longest loop (the span of its longest backward branch): for K3 the
-    round loop, the instructions one warp issues a round."""
+    its longest loop (the span of its longest backward branch) and of each
+    innermost loop of 32 instructions or more: for K3 the round loop, the
+    instructions one warp issues a round; for K4 the rotation loops, one per
+    slot of q, the instructions one warp issues a rotation."""
     for func in sass.split("Function : ")[1:]:
         name = func.split()[0]
         ins = re.findall(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z0-9_]+)[^;]*?"
                          r"(?:0x([0-9a-f]+))?\s*;", func)
-        spans = [(int(tgt, 16), int(at, 16)) for at, _, op, tgt in ins
-                 if op == "BRA" and tgt and int(tgt, 16) < int(at, 16)]
+        spans = sorted({(int(tgt, 16), int(at, 16)) for at, _, op, tgt in ins
+                        if op == "BRA" and tgt and int(tgt, 16) < int(at, 16)})
         if not spans:
             continue
-        lo, hi = max(spans, key=lambda span: span[1] - span[0])
-        ops = [op for at, _, op, _ in ins if lo <= int(at, 16) <= hi]
-        flt = sum(op in ("FMUL", "FADD", "FFMA") for op in ops)
-        lds, sts = ops.count("LDS"), ops.count("STS")
-        print(f"  tree {name[-48:]}: longest loop {len(ops)} instructions: "
-              f"float {flt}, LDS {lds}, STS {sts}, other {len(ops) - flt - lds - sts}")
+        longest = max(spans, key=lambda span: span[1] - span[0])
+        inner = [sp for sp in spans if sp != longest and not any(
+            o != sp and sp[0] <= o[0] and o[1] <= sp[1] for o in spans)]
+        for label, (lo, hi) in [("longest loop", longest)] + [
+                ("inner loop", sp) for sp in inner]:
+            ops = [op for at, _, op, _ in ins if lo <= int(at, 16) <= hi]
+            if label == "inner loop" and len(ops) < 32:
+                continue
+            flt = sum(op in ("FMUL", "FADD", "FFMA") for op in ops)
+            lds, sts = ops.count("LDS"), ops.count("STS")
+            shfl = ops.count("SHFL")
+            sync = sum(op in ("WARPSYNC", "BAR") for op in ops)
+            print(f"  tree {name[-48:]}: {label} {len(ops)} instructions: "
+                  f"float {flt}, LDS {lds}, STS {sts}, SHFL {shfl}, "
+                  f"WARPSYNC/BAR {sync}, other "
+                  f"{len(ops) - flt - lds - sts - shfl - sync}")
 
 
 def main(argv=None) -> int:
@@ -60,7 +72,7 @@ def main(argv=None) -> int:
     ap.add_argument("variants", nargs="*", help="name=old>>>new")
     ap.add_argument("--kernel", choices=("parallel", "cyclic"), default="parallel")
     ap.add_argument("--sass", type=Path, help="write the tree build's SASS here")
-    args = ap.parse_args(argv)
+    args = ap.parse_intermixed_args(argv)
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1

@@ -18,10 +18,11 @@ from cwbnwp_letkf_torch.ops.jacobi_eigh import (jacobi_cyclic, jacobi_eigh,
 from .torch_parity import assert_eigh_close, assert_k96_sweep_level, spd_case
 
 
-@pytest.mark.parametrize("k", [4, 16, 40, 2, 3, 9, 13])
+@pytest.mark.parametrize("k", [4, 16, 40, 2, 3, 9, 13, 41])
 def test_jacobi_eigh_matches_pallas_kernel(k):
-    """k in {4, 16, 40}: the round-robin kernel (K3); {2, 3, 9, 13}: the
-    sequential one (K4).  The inputs of tests/test_pallas_eigh.py:27-29."""
+    """k in {4, 16, 40}: the round-robin kernel (K3); {2, 3, 9, 13, 41}: the
+    sequential one (K4), 41 being the odd k a path runs.  The inputs of
+    tests/test_pallas_eigh.py:27-29."""
     a = spd_case(np.random.default_rng(71), 6, k)
     lam_p, v_p = jacobi_eigh_pallas(jnp.asarray(a), interpret=True)
     lam, v = jacobi_eigh(torch.from_numpy(a))

@@ -233,6 +233,43 @@ def test_jacobi_parallel_partition_edges(cuda, k, b):
     assert torch.equal(lam, lam_p) and torch.equal(v, v_p)
 
 
+@pytest.mark.parametrize("b", [1, 5, 33, 130])
+@pytest.mark.parametrize("k", [1, 2, 3, 5, 9, 31, 33, 41, 63, 95])
+def test_jacobi_cyclic_partition_edges(cuda, k, b):
+    """K4 bit for bit against its plain version where its partition has
+    edges: the compile-time k = 41 (two matrices a warp) with an idle half
+    warp at odd b, the run-time k below and above a warp, k = 95 with three
+    indices a lane, k = 1 with no rotation and k = 2 with one a sweep."""
+    rng = np.random.default_rng(500 + k + b)
+    a = torch.from_numpy(spd_case(rng, b, k)).to(cuda)
+    lam, v = eigh_kernel.launch(a)
+    lam_p, v_p = jacobi_cyclic(a)
+    assert torch.equal(lam, lam_p) and torch.equal(v, v_p)
+
+
+def test_jacobi_cyclic_nan_matrix_leaves_its_neighbours(cuda):
+    """A NaN stays in its matrix, the other matrix of its warp included."""
+    a = torch.from_numpy(spd_case(np.random.default_rng(77), 5, 41)).to(cuda)
+    a[2, 0, 1] = float("nan")
+    lam, v = eigh_kernel.launch(a)
+    lam_p, v_p = jacobi_cyclic(a)
+    keep = [0, 1, 3, 4]
+    assert torch.equal(lam[keep], lam_p[keep]) and torch.equal(v[keep], v_p[keep])
+    assert not bool(torch.isfinite(lam[2]).all())
+
+
+@pytest.mark.parametrize("k,threads,matrices", [(41, 128, 8), (9, 128, 4),
+                                                (40, 128, 4), (96, 256, 1)])
+def test_jacobi_config(cuda, k, threads, matrices):
+    """The launch shapes: four warps a block of two k=41 matrices each (K4),
+    of one matrix at any other k (K4, and K3 at k=40), one 256-thread block
+    per k=96 matrix (K3)."""
+    cfg = eigh_kernel.config(k)
+    assert (cfg["threads"], cfg["matrices"]) == (threads, matrices)
+    assert cfg["registers"] > 0 and cfg["blocks_per_sm"] >= 1
+    assert cfg["matrices_per_sm"] == matrices * cfg["blocks_per_sm"]
+
+
 def test_jacobi_kernel_k96_sweep_level(cuda):
     """K3 at the production k=96: seven sweeps keep their known accuracy on
     ``G G^T + 10 I`` (4.0e-5 max|A| after the polish), eight meet 3e-5."""
