@@ -46,7 +46,22 @@ Phases, in order; any failure raises and the exit code is not 0:
    and under ``"auto"`` (K1 at k=41), held against each other; under
    ``"jacobi"`` again, warm, timed, equal to the first run; and K4 bit for
    bit against its plain version on the first real ``[4096, 41, 41]``
-   stack the entry gave it.
+   stack the entry gave it;
+9. the entry point a user calls, ``driver.run_analysis``, on 40 WRF member
+   files of the bench grid (128x128x20 at about 10 km, Milbrandt
+   microphysics: the 16 production variables) written through the port's
+   ``NetcdfWriter``, with a production-shaped namelist and synop, vr and
+   dbz records at projected lon/lat over the whole domain:
+   ``read_ensemble`` -> the fused run (five point sets; K1 only, its
+   launches counted; finite, no overflow, converged, T's RMSE lower; K1
+   against its plain version on the run's first batch) -> a second fused
+   run, warm and timed (stage seconds, per-group wall and load, var-point
+   updates/s, K1 seconds, peak device memory), equal bit for bit -> the
+   per-variable run on a fresh read, within ``XA_RTOL`` of the fused
+   increment per variable (``F32_ULPS`` where that is below one float32
+   spacing) -> a control, the fused run with K1's Z off by ``Z_FAULT``,
+   which every variable's limit must fail -> ``write_ensemble``, read back
+   equal.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after; the launches made to compare a kernel with its plain
@@ -184,14 +199,15 @@ def timed_launches(module):
 
 @contextlib.contextmanager
 def first_input(module):
-    """Under it, a copy of the first batch given to ``module.launch`` is
-    kept in the yielded list (which stays empty if there is none)."""
+    """Under it, a copy of the first batch given to ``module.launch`` and
+    the call's other positional arguments are kept in the yielded list, as
+    ``(batch, args)`` (the list stays empty if there is no launch)."""
     got = []
     launch = module.launch
 
     def capture(a, *args, **kwargs):
         if not got:
-            got.append(a.clone())
+            got.append((a.clone(), args))
         return launch(a, *args, **kwargs)
 
     module.launch = capture
@@ -842,7 +858,7 @@ def phase_updates(dev, pts_d, xb_d, xa_jac, dplats, nz):
                 print(f"  (c) warm run: {wall:.3f} s, K4 "
                       f"{launch_seconds(events):.4f} s on the card in "
                       f"{len(events)} launches (CUDA events around each)")
-                real = stacks[0]
+                real = stacks[0][0]
         finally:
             solver.set_eigh_backend("auto")
         check(int(diag["bucket_overflow"]) == 0, f"(c) {backend}: overflow")
@@ -858,6 +874,405 @@ def phase_updates(dev, pts_d, xb_d, xa_jac, dplats, nz):
     compare_jacobi(real, f"(c) first chunk, {list(real.shape)}", timed=False,
                    rec_tol=REAL_REC_TOL)
     return out["jacobi"][1]
+
+
+#: phase 9's WRF case: the bench case's 128x128x20 grid at about 10 km
+#: (dlat 0.09 degrees) around the projection origin, Milbrandt microphysics
+#: (wrf_mp_physics = 9: all 16 production variables exist)
+DLAT = 0.09
+PROJECTION = {"cen_lon": 120.0, "cen_lat": 23.7, "truelat1": 10.0,
+              "truelat2": 40.0, "sta_lon": 120.0}
+VAR_UPDATE = ("U", "V", "W", "T", "QVAPOR", "QRAIN", "QSNOW", "QGRAUP",
+              "QHAIL", "QNRAIN", "QNSNOW", "QNGRAUPEL", "QNHAIL", "MU", "P",
+              "PH")
+#: the radar retrievals of PLATFORMS (their error comes from the namelist)
+RADAR = ("vr", "dbz")
+#: phase 9's per-variable run against the fused one: the limit is
+#: XA_RTOL of the increment, or F32_ULPS float32 spacings of the field's
+#: largest value where XA_RTOL of the increment is below one spacing.  That
+#: is PH's case: a full field (base state added, ~1e5, spacing 0.0078) with
+#: a small increment, which each path rounds a few times at that scale
+#: (mean + increment, RTPP, RTPS)
+F32_ULPS = 4
+#: phase 9's control: the fused run again with K1's Z scaled by
+#: 1 + Z_FAULT, a kernel off by 1%; every field's limit must fail it
+Z_FAULT = 1e-2
+
+
+def driver_namelist(k):
+    """The production namelist's shape (input.nml:7, 38-55, 160-170) for
+    PROD_GROUPS, PLATFORMS, MULTI_INFL and RTPP/RTPS."""
+    def row(vals):
+        return ", ".join(f"{v:g}" for v in vals)
+
+    lines = ["&control", f" nmember = {k}",
+             " var_update = " + ", ".join(f"'{v}'" for v in VAR_UPDATE),
+             " weight_function = 0", " wrf_mp_physics = 9", "/",
+             "&projection"]
+    lines += [f" {key} = {val}" for key, val in PROJECTION.items()]
+    lines += ["/", "&observations"]
+    for name, _, nvar, cap, err in PLATFORMS:
+        h, v = [-1.0] * N_VARS, [-1.0] * N_VARS
+        for ivars, radii in PROD_GROUPS:
+            for iv in ivars:
+                if name in radii:
+                    h[iv], v[iv] = radii[name]
+        nml = f"radar_nml % {name}" if name in RADAR else f"{name}_nml"
+        lines += [f" {nml} % use_it = T", f" {nml} % max_lz_pts = {cap}",
+                  f" {nml} % hclr = {row(h)}", f" {nml} % vclr = {row(v)}"]
+        if name in RADAR:
+            lines.append(f" {nml} % error = {err}")
+        else:
+            lines += [f" {nml} % {var} % is_assim = {N_VARS}*T"
+                      for var in ("u", "v", "t", "p", "q")[:nvar]]
+    lines += ["/", "&inflation", f" multi_infl = {row(MULTI_INFL)}",
+              f" use_rtpp = {N_VARS}*T", f" rtpp_alpha = {N_VARS}*{RTPP}",
+              f" use_rtps = {N_VARS}*T", f" rtps_alpha = {N_VARS}*{RTPS}",
+              "/", ""]
+    return "\n".join(lines)
+
+
+def write_wrf_case(d, rng, grid, k):
+    """``k`` Milbrandt member files in ``d``, written through the port's
+    NetcdfWriter from a template that holds the geometry and base state.
+
+    Every field is one smooth, spatially correlated member perturbation
+    ``dxb`` (obs.synthetic.correlated_ensemble over the projected mass grid,
+    the bench case's bumps) on its own offset and scale; T is the bench's
+    field itself, near 290.  Returns ``(paths, T's truth [nx, ny], the
+    members' T [nx, ny, k], the projected mass-grid x and y [nx, ny])``.
+    """
+    import concurrent.futures as cf
+
+    from scipy.io import netcdf_file
+
+    from cwbnwp_letkf_torch.config import ProjectionConfig
+    from cwbnwp_letkf_torch.io.netcdf import NetcdfReader, NetcdfWriter
+    from cwbnwp_letkf_torch.obs.synthetic import correlated_ensemble
+    from cwbnwp_letkf_torch.projection import LambertProjection
+
+    nx, ny, nz = grid
+    c_lon, c_lat = PROJECTION["cen_lon"], PROJECTION["cen_lat"]
+    lons = c_lon + (np.arange(nx) - nx / 2) * DLAT
+    lats = c_lat + (np.arange(ny) - ny / 2) * DLAT
+    lons_u = c_lon + (np.arange(nx + 1) - 0.5 - nx / 2) * DLAT
+    lats_v = c_lat + (np.arange(ny + 1) - 0.5 - ny / 2) * DLAT
+    proj = LambertProjection.from_config(ProjectionConfig(**PROJECTION))
+    gx, gy = proj.lonlat_to_xy(*np.meshgrid(lons, lats, indexing="ij"))
+    pts2 = np.stack([gx.ravel(), gy.ravel(), np.zeros(nx * ny)], 1)
+    truth, xb = correlated_ensemble(rng, pts2.astype(np.float32), k,
+                                    n_bumps=8, length_m=1.5e5)
+    truth = truth.reshape(nx, ny)
+    t_xb = xb.reshape(nx, ny, k)
+    dxb = t_xb - np.float32(290.0)                        # [nx, ny, k]
+    z_w = np.arange(nz + 1) * 500.0                       # w levels, m
+
+    def lev(f2, n):
+        return np.repeat(f2[:, :, None], n, axis=2)
+
+    tpl = str(d / "template.nc")
+    f = netcdf_file(tpl, "w", version=2)
+    f.TITLE = "SYNTHETIC WRF (chip_smoke phase 9)"
+    for name, size in (("Time", None), ("west_east", nx),
+                       ("west_east_stag", nx + 1), ("south_north", ny),
+                       ("south_north_stag", ny + 1), ("bottom_top", nz),
+                       ("bottom_top_stag", nz + 1)):
+        f.createDimension(name, size)
+    d2, d2u, d2v = (("south_north", "west_east"),
+                    ("south_north", "west_east_stag"),
+                    ("south_north_stag", "west_east"))
+    d3, d3w = ("bottom_top",) + d2, ("bottom_top_stag",) + d2
+    dims = {"XLONG": d2, "XLAT": d2, "XLONG_U": d2u, "XLAT_U": d2u,
+            "XLONG_V": d2v, "XLAT_V": d2v, "HGT": d2, "PSFC": d2, "MU": d2,
+            "MUB": d2, "PHB": d3w, "PH": d3w, "W": d3w,
+            "U": ("bottom_top",) + d2u, "V": ("bottom_top",) + d2v,
+            "T": d3, "PB": d3, "P": d3, "QVAPOR": d3}
+    dims.update({name: d3 for name in VAR_UPDATE[5:13]})
+    for name, dd in dims.items():
+        f.createVariable(name, np.float32, ("Time",) + dd)
+    fixed = {"HGT": np.zeros((nx, ny)), "MUB": np.full((nx, ny), 9.5e4),
+             "PHB": lev(np.ones((nx, ny)), nz + 1) * (9.81 * z_w),
+             "PB": lev(np.ones((nx, ny)), nz) * (1e5 - 4e3 * np.arange(nz))}
+    for sfx, (xs, ys) in (("", (lons, lats)), ("_U", (lons_u, lats)),
+                          ("_V", (lons, lats_v))):
+        fixed["XLONG" + sfx], fixed["XLAT" + sfx] = np.meshgrid(
+            xs, ys, indexing="ij")
+    for name, var in f.variables.items():   # one record for every variable
+        var[0] = np.asarray(fixed.get(name, 0.0), np.float32).T
+    f.close()
+
+    def member_fields(m):
+        dm = dxb[:, :, m]
+        out = {
+            "T": lev(t_xb[:, :, m], nz),
+            "U": lev(np.concatenate([dm, dm[-1:]], 0), nz) + 5.0,
+            "V": lev(np.concatenate([dm, dm[:, -1:]], 1), nz) - 3.0,
+            "W": lev(0.1 * dm, nz + 1), "PH": lev(2.0 * dm, nz + 1),
+            "P": lev(50.0 * dm, nz), "MU": 50.0 * dm,
+            "PSFC": 1e5 + 100.0 * dm,
+            "QVAPOR": lev(8e-3 + 1e-3 * dm, nz)}
+        for name in VAR_UPDATE[5:13]:   # some negative values: clamped on read
+            scale = 1e3 if name.startswith("QN") else 1e-4
+            out[name] = lev(scale * (1.0 + 0.5 * dm), nz)
+        return out
+
+    def write_member(m):
+        path = str(d / f"wrfinput_d01_{m + 1:03d}")
+        with NetcdfReader(tpl) as src, NetcdfWriter(path) as dst:
+            dst.copy_header_from(src)
+            for name, arr in member_fields(m).items():
+                dst.write_variable(name, arr.astype(np.float32))
+            dst.write_others(src)
+        return path
+
+    with cf.ThreadPoolExecutor(max_workers=8) as ex:
+        paths = list(ex.map(write_member, range(k)))
+    return paths, truth, t_xb, gx, gy
+
+
+def driver_obs(rng, truth, t_xb, gx, gy, grid):
+    """PLATFORMS' records at uniform lon/lat over the whole domain,
+    projected; each observes T's truth at its nearest column with the
+    platform's error, and H(xb) is that column's members."""
+    from scipy.spatial import cKDTree
+
+    from cwbnwp_letkf_torch.obs.base import make_platform_obs
+
+    nx, ny, nz = grid
+    k = t_xb.shape[-1]
+    tree = cKDTree(np.stack([gx.ravel(), gy.ravel()], 1))
+    lo = np.array([gx.min(), gy.min()])
+    hi = np.array([gx.max(), gy.max()])
+    obs_data = {}
+    for name, nobs, nvar, _, err in PLATFORMS:
+        xy = rng.uniform(lo, hi, (nobs, 2))
+        alt = rng.uniform(0.0, 0.3 * nz * 500.0, nobs)
+        _, gi = tree.query(xy, k=1)
+        obs = truth.ravel()[gi][None] + rng.normal(0.0, err, (nvar, nobs))
+        hdxb = np.repeat(t_xb.reshape(-1, k)[gi][None], nvar, 0)
+        error = None if name in RADAR else np.full((nvar, nobs), err)
+        obs_data[name] = make_platform_obs(np.column_stack([xy, alt]), obs,
+                                           hdxb, error=error)
+    return obs_data
+
+
+def n_ns_launches(groups, chunk, multi_infl):
+    """K1 launches of a fused run: per point set and chunk, one per distinct
+    inflation value among its variables."""
+    names = list(VAR_UPDATE)
+    return sum(-(-g["points"] // chunk)
+               * len({multi_infl[names.index(v)] for v in g["variables"]})
+               for g in groups)
+
+
+def field_limit(incr, field):
+    """``(limit, spacing)``: phase 9's limit on ``max|dxa|`` of a field
+    whose fused increment is ``incr`` (see ``F32_ULPS``), and the float32
+    spacing of the field's largest value."""
+    ulp = float(np.spacing(np.abs(field).max().astype(np.float32)))
+    tol = XA_RTOL * incr
+    return (tol if tol >= ulp else F32_ULPS * ulp), ulp
+
+
+@contextlib.contextmanager
+def scaled_z(factor):
+    """Under it, every Newton-Schulz solve returns ``factor`` times its Z."""
+    from cwbnwp_letkf_torch.ops import solver
+
+    ns_z = solver._ns_z
+
+    def faulty(a_obs, inflat):
+        z, resid = ns_z(a_obs, inflat)
+        return z * factor, resid
+
+    solver._ns_z = faulty
+    try:
+        yield
+    finally:
+        solver._ns_z = ns_z
+
+
+@contextlib.contextmanager
+def pending_at_return(module):
+    """Under it, each ``module.update_points_cycle`` call records whether
+    the device still had its work queued when the call returned."""
+    got = []
+    fn = module.update_points_cycle
+
+    def probe(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        ev = torch.cuda.Event()
+        ev.record()
+        got.append(not ev.query())
+        return out
+
+    module.update_points_cycle = probe
+    try:
+        yield got
+    finally:
+        module.update_points_cycle = fn
+
+
+def phase_driver(dev, smi_line, grid=GRID, k=K, chunk=CHUNK):
+    """Phase 9: ``driver.run_analysis`` on WRF member files; returns the K1
+    launches of the fused run and K1's ``max|dZ|`` against its plain version
+    on the run's first batch."""
+    import tempfile
+    from pathlib import Path
+
+    from cwbnwp_letkf_torch import driver
+    from cwbnwp_letkf_torch.config import LetkfConfig
+    from cwbnwp_letkf_torch.io.netcdf import NetcdfReader
+    from cwbnwp_letkf_torch.metrics import RunMetrics
+    from cwbnwp_letkf_torch.models.state import read_ensemble, write_ensemble
+    from cwbnwp_letkf_torch.models.variables import VAR_TABLE
+    from cwbnwp_letkf_torch.ops import ns_kernel
+
+    keys = [VAR_TABLE[v].field for v in VAR_UPDATE]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_wrf_") as tmp:
+        d = Path(tmp)
+        t0 = time.time()
+        rng = np.random.default_rng(SEED + 9)
+        paths, truth, t_xb, gx, gy = write_wrf_case(d, rng, grid, k)
+        obs_data = driver_obs(rng, truth, t_xb, gx, gy, grid)
+        (d / "input.nml").write_text(driver_namelist(k))
+        cfg = LetkfConfig.from_namelist(str(d / "input.nml"))
+        print(f"  case: {k} member files of {grid[0]}x{grid[1]}x{grid[2]}, "
+              f"{len(VAR_UPDATE)} variables, records "
+              f"{ {n: po.nrec for n, po in obs_data.items()} }; written in "
+              f"{time.time() - t0:.2f} s")
+
+        def read():
+            t0 = time.time()
+            ens = read_ensemble(paths, cfg, want_rhoa=False)
+            return ens, time.time() - t0
+
+        def run(ens, fuse):
+            m = RunMetrics()
+            t0 = time.time()
+            driver.run_analysis(cfg, ens, obs_data, chunk=chunk,
+                                fuse_variables=fuse, metrics=m, device=dev)
+            torch.cuda.synchronize(dev)
+            return m, time.time() - t0
+
+        ens, read_s = read()
+        xb_t = ens.fields["t"].copy()
+        reset_counts()
+        with pending_at_return(driver) as pending, \
+                first_input(ns_kernel) as firsts:
+            m, wall = run(ens, True)
+        counts = read_counts()
+        d1 = m.to_dict()
+        print(f"  fused run (cold): read {read_s:.3f} s, run_analysis "
+              f"{wall:.3f} s, stages {d1['stages_s']}")
+        for g in d1["groups"]:
+            check(g["bucket_overflow"] == 0,
+                  f"{g['variables']}: bucket overflow {g['bucket_overflow']}")
+            check(g["ns_residual"] <= NS_TOL,
+                  f"{g['variables']}: ns_residual {g['ns_residual']}")
+        for key in keys:
+            check(bool(np.isfinite(ens.fields[key]).all()),
+                  f"fused analysis of {key} not finite")
+        expected = n_ns_launches(d1["groups"], chunk, MULTI_INFL)
+        check_only(counts, "ns_invsqrt", expected,
+                   f"run_analysis fused ({len(d1['groups'])} point sets; "
+                   f"per chunk one per inflation value)")
+        fused_launches = counts["ns_invsqrt"]
+        check(len(firsts) == 1, "run_analysis fused: no K1 batch captured")
+        stack, (inflat,) = firsts[0]
+        check(tuple(stack.shape[1:]) == (k, k),
+              f"run_analysis: first K1 batch {tuple(stack.shape)}")
+        err = compare_kernel(stack, inflat, f"run_analysis first chunk "
+                             f"{list(stack.shape)}, inflat {inflat:.4f}")
+        del stack, firsts
+        truth_t = np.repeat(truth[:, :, None], grid[2], 2)
+        rmse_b = float(np.sqrt(((xb_t.mean(-1) - truth_t) ** 2).mean()))
+        rmse_a = float(np.sqrt(((ens.fields["t"].mean(-1) - truth_t) ** 2)
+                               .mean()))
+        print(f"  fused run: T mean RMSE background {rmse_b:.4f} -> "
+              f"analysis {rmse_a:.4f}")
+        check(rmse_a < rmse_b, "run_analysis: T analysis RMSE not lower")
+        del xb_t, truth_t
+
+        ens_w, read_s = read()
+        torch.cuda.reset_peak_memory_stats(dev)
+        with timed_launches(ns_kernel) as events:
+            m, wall = run(ens_w, True)
+        d2 = m.to_dict()
+        for key in keys:
+            check(np.array_equal(ens_w.fields[key], ens.fields[key]),
+                  f"warm fused run: {key} differs from the first run")
+        del ens_w
+        print(f"  {smi_line}: warm fused run: read {read_s:.3f} s, "
+              f"run_analysis {wall:.3f} s, stages {d2['stages_s']}, "
+              f"{d2['var_points_per_s']} var-point updates/s "
+              f"(total_var_points {d2['total_var_points']} / update_wall_s "
+              f"{d2['update_wall_s']}); K1 {launch_seconds(events):.4f} s "
+              f"on the card in {len(events)} launches (CUDA events around "
+              f"each); peak device memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
+        for g, busy in zip(d2["groups"], pending):
+            print(f"    {'+'.join(g['variables'])}: {g['points']} points, "
+                  f"wall_s {g['wall_s']}, load_s {g['load_s']}, "
+                  f"ns_residual {g['ns_residual']}; device work still "
+                  f"queued when update_points_cycle returned (cold run): "
+                  f"{busy}")
+
+        ens_v, read_s = read()
+        incr = {key: float(np.abs(ens.fields[key] - ens_v.fields[key]).max())
+                for key in keys}
+        reset_counts()
+        m, wall = run(ens_v, False)
+        counts = read_counts()
+        print(f"  per-variable run: read {read_s:.3f} s, run_analysis "
+              f"{wall:.3f} s")
+        check_only(counts, "ns_invsqrt",
+                   sum(len(g["variables"]) * -(-g["points"] // chunk)
+                       for g in d1["groups"]),
+                   "run_analysis per variable (one per variable and chunk)")
+        limits, gaps = {}, []
+        for key in keys:
+            check(incr[key] > 0, f"fused run did not update {key}")
+            diff = float(np.abs(ens_v.fields[key] - ens.fields[key]).max())
+            limits[key], ulp = field_limit(incr[key], ens.fields[key])
+            gaps.append(f"{key} {diff / incr[key]:.2e} ({diff / ulp:.0f} ulp, "
+                        f"{diff / limits[key]:.3f} of the limit)")
+            check(diff <= limits[key], f"per-variable vs fused {key}: max|dxa| "
+                  f"{diff} > {limits[key]} (increment {incr[key]}, float32 "
+                  f"spacing {ulp})")
+        print(f"  per-variable vs fused, max|dxa| in units of the increment "
+              f"(and of the field's float32 spacing, and of the limit): "
+              f"{', '.join(gaps)}")
+        del ens_v
+
+        ens_c, read_s = read()
+        with scaled_z(1.0 + Z_FAULT):
+            m, wall = run(ens_c, True)
+        gaps = {key: float(np.abs(ens_c.fields[key] - ens.fields[key]).max())
+                / limits[key] for key in keys}
+        del ens_c
+        print(f"  control, K1's Z scaled by 1 + {Z_FAULT:g} (fused run "
+              f"{wall:.3f} s): max|dxa| in units of the limit: "
+              + ", ".join(f"{key} {gap:.2f}" for key, gap in gaps.items()))
+        for key, gap in gaps.items():
+            check(gap > 1.0, f"control: {key}'s limit passes a Z off by "
+                  f"{Z_FAULT:g}, so it cannot see such a fault")
+
+        t0 = time.time()
+        out = [str(d / f"wrfout_d01_{m + 1:03d}") for m in range(k)]
+        write_ensemble(ens, out)
+        write_s = time.time() - t0
+        base = {"p": ens.pb, "ph": ens.phb, "mu": ens.mub}
+        for mi, path in enumerate(out):
+            with NetcdfReader(path) as nc:
+                for name, key in zip(VAR_UPDATE, keys):
+                    want = ens.fields[key][..., mi]
+                    if key in base:
+                        want = want - base[key]
+                    check(np.array_equal(nc.get_variable(name), want),
+                          f"{path}: {name} read back differs")
+        print(f"  write_ensemble {write_s:.3f} s; {k} files read back equal")
+    return fused_launches, err
 
 
 def main():
@@ -933,6 +1348,12 @@ def main():
         launches4 = phase_updates(dev, pts_d, xb_d, xa_jac, dplats, GRID[2])
         record["jacobi_cyclic"] = {"launches": launches4,
                                    **jac["jacobi_cyclic"]}
+
+        print("phase 9: run_analysis on WRF member files")
+        launches9, err9 = phase_driver(dev, smi_line)
+        record["ns_invsqrt"]["launches_run_analysis"] = launches9
+        record["ns_invsqrt"]["max_abs_err"] = max(
+            record["ns_invsqrt"]["max_abs_err"], err9)
     print(f"all phases passed in {time.time() - t_start:.1f} s")
 
     kernels = []

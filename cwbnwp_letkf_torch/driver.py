@@ -1,0 +1,309 @@
+"""Top-level LETKF analysis driver: the reference's ``letkf_driver``.
+
+Port of the JAX package's ``driver.py``.  It runs the per-variable update
+loop of module_letkf_core.f90:21-298 over the gridded WRF ensemble: for each
+``var_update`` entry the stagger dispatch, the analysis-point coordinates
+(cached per stagger class, as check_coordinate does, letkf_core.f90:735-747),
+the batched point update on the device, and the moisture positivity fix for
+the Q* variables (letkf_core.f90:252-278).  The platforms' statistics are
+prepared once per cycle, since they do not depend on the variable.
+
+The analysis runs on ``device``, the card unless the caller asks for the
+CPU; the ensemble and its files stay on the host.  The multi-device update
+(``mesh``, ``distributed``, ROADMAP M11) and the device-time breakdown
+(``device_breakdown``, ROADMAP M12) are not ported yet and raise.
+"""
+from __future__ import annotations
+
+import time
+import warnings
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .config import LetkfConfig
+from .metrics import RunMetrics
+from .models.variables import VAR_TABLE
+from .models.vcoord import analysis_points, mean_geopotential_height
+from .obs.base import PlatformObs, platform_statics_from_config
+from .ops.cycle import CycleGroup, plan_cycle_budgets, update_points_cycle
+from .ops.solver import tune_q
+from .ops.update import DevicePlatform, prepare_platform, update_points
+from .projection import LambertProjection
+
+#: ``cfg.accum_precision`` names of the JAX package (bf16_3x and full
+#: float32 there).  The port accumulates in full float32 under both: TF32 is
+#: off (:mod:`.device`) and CUDA cores have no bf16_3x.
+ACCUM_PRECISIONS = ("high", "highest")
+
+
+class StageTimer:
+    """Wall-clock stage log (the reference's timer(), mpi_util.f90:66-71)."""
+
+    def __init__(self, log=print, enabled: bool = True):
+        self.t0 = time.time()
+        self.log = log
+        self.enabled = enabled
+
+    def stamp(self, msg: str):
+        if self.enabled:
+            self.log(f"{time.time() - self.t0:7.3f} sec ==========> {msg}")
+
+
+def prepare_platforms(
+    cfg: LetkfConfig,
+    obs_data: Dict[str, PlatformObs],
+    device: torch.device | str = "cuda",
+) -> List[DevicePlatform]:
+    """Pair configured platform statics with their parsed obs arrays, on
+    ``device``."""
+    out = []
+    for st in platform_statics_from_config(cfg):
+        po = obs_data.get(st.name)
+        if po is None or po.nrec == 0:
+            continue
+        if po.nvar != st.nvar:
+            raise ValueError(
+                f"platform {st.name}: expected {st.nvar} observed vars, "
+                f"got {po.nvar}")
+        out.append(prepare_platform(st, po, device=device,
+                                    norain_value=cfg.norain_value))
+    return out
+
+
+def _group_variables(cfg, platforms):
+    """Group ``var_update`` entries that can share one weight computation.
+
+    Two variables fuse when they share (a) analysis points (identical
+    stagger) and (b) the localization signature every active platform
+    applies to them: ``(hclr, vclr, assim_mask)``.  Then their local obs
+    sets and whitened normal terms are identical and ``A_v`` differs only by
+    ``inflat_v * I`` (see ops/solver.letkf_solve_group_from_normal).  The
+    reference has no such notion: it rebuilds trees and redoes every solve
+    per variable (letkf_core.f90:59-297).
+
+    Returns a list of groups ``[(key, [(ivar, vname, spec), ...]), ...]`` in
+    first-appearance order; variables nothing assimilates are dropped
+    (letkf_core.f90:66).
+    """
+    groups: Dict[tuple, list] = {}
+    order = []
+    for ivar, vname in enumerate(cfg.var_update):
+        if not vname:
+            break
+        spec = VAR_TABLE.get(vname)
+        if spec is None:
+            raise ValueError(
+                f"unknown analysis variable {vname!r} "
+                "(letkf_core.f90:159-161 aborts likewise)")
+        sig = []
+        for dp in platforms:
+            st = dp.static
+            if st.active(ivar):
+                sig.append((st.name, st.hclr[ivar], st.vclr[ivar],
+                            st.assim_mask(ivar)))
+        if not sig:
+            continue
+        key = (spec.hstag, spec.vstag, tuple(sig))
+        if key not in groups:
+            groups[key] = []
+            order.append(key)
+        groups[key].append((ivar, vname, spec))
+    return [(key, groups[key]) for key in order]
+
+
+def _sync(device: torch.device) -> None:
+    """Wait for the device, so a stage closed after it holds its own time."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+@torch.inference_mode()
+def run_analysis(
+    cfg: LetkfConfig,
+    ens,
+    obs_data: Dict[str, PlatformObs],
+    *,
+    mesh=None,
+    chunk: int = 4096,
+    timer: Optional[StageTimer] = None,
+    fuse_variables: bool = True,
+    metrics: Optional[RunMetrics] = None,
+    device_breakdown: bool = False,
+    distributed: bool = False,
+    device: torch.device | str = "cuda",
+):
+    """In-place LETKF analysis of ``ens`` for every ``var_update`` variable.
+
+    ``ens`` is a :class:`.models.state.WrfEnsemble` or a
+    :class:`.models.state.StreamingWrfEnsemble`.  ``fuse_variables=True``
+    (default) updates the variables that share their points in one
+    :func:`.ops.cycle.update_points_cycle` call per point set, one solve per
+    gridpoint per localization-signature group; ``False`` runs the
+    reference-shaped one-variable-at-a-time loop through
+    :func:`.ops.update.update_points` (the same analysis up to solver
+    roundoff).
+
+    The fused branch is a one-group-deep pipeline: the host reads point set
+    g+1's fields into a ``[B, V, k]`` buffer, copies it to the device and
+    queues its update while the device may still run point set g; then g's
+    result comes back in one copy and is stored.  The read overlaps g's
+    compute only as far as g's update returns before the device finishes
+    it.
+
+    Runs on ``device`` (the card by default; the CPU only when asked).  A
+    float32 solve of more than 96 members on a card is refused by the
+    update functions (``solver.check_ensemble_size``).
+    """
+    if mesh is not None or distributed:
+        raise ValueError("mesh / distributed=True is the multi-device update, "
+                         "which is not ported yet: ROADMAP M11")
+    if device_breakdown:
+        raise ValueError("device_breakdown=True (profiling.device_breakdown) "
+                         "is not ported yet: ROADMAP M12")
+    if cfg.accum_precision not in ACCUM_PRECISIONS:
+        raise ValueError(f"accum_precision must be one of "
+                         f"{sorted(ACCUM_PRECISIONS)}, got "
+                         f"{cfg.accum_precision!r}")
+    device = torch.device(device)
+    timer = timer or StageTimer(enabled=False)
+    metrics = metrics if metrics is not None else RunMetrics()
+    k_ens = cfg.nmember
+    proj = LambertProjection.from_config(cfg.projection)
+    platforms = prepare_platforms(cfg, obs_data, device)
+    for dp in platforms:
+        metrics.add_platform(dp)
+    _sync(device)
+    metrics.stage("prepare_platforms")
+    solver_dtype = (torch.float64 if cfg.solver_dtype == "float64"
+                    else torch.float32)
+    quirk = cfg.replicate_stagger_quirk
+
+    z_w = mean_geopotential_height(ens)
+    pts_cache: Dict[Tuple[int, int], Tuple[np.ndarray, Tuple[int, int, int]]] = {}
+    infl = cfg.inflation
+
+    def points_for(spec):
+        key = (spec.hstag, spec.vstag)
+        if key not in pts_cache:
+            pts_cache[key] = analysis_points(
+                ens, proj, spec.hstag, spec.vstag, z_w, quirk=quirk)
+        return pts_cache[key]
+
+    if not fuse_variables:
+        for _, members in _group_variables(cfg, platforms):
+            for ivar, vname, spec in members:
+                timer.stamp(f"update {vname}")
+                pts, (ux, uy, uz) = points_for(spec)
+                xb = ens.load_group([spec], ux, uy, uz)[:, 0, :]
+                xa = update_points(
+                    torch.from_numpy(xb).to(device),
+                    torch.from_numpy(pts).to(device), platforms, ivar,
+                    inflat=(k_ens - 1) / infl.multi_infl[ivar],
+                    weight_function=cfg.weight_function,
+                    use_rtpp=bool(infl.use_rtpp[ivar]),
+                    rtpp_alpha=infl.rtpp_alpha[ivar],
+                    use_rtps=bool(infl.use_rtps[ivar]),
+                    rtps_alpha=infl.rtps_alpha[ivar],
+                    solver_dtype=solver_dtype, chunk=chunk)
+                if spec.tune_q:
+                    xa = tune_q(xa)  # letkf_core.f90:252-278
+                ens.store_group([spec], xa.cpu().numpy()[:, None, :],
+                                ux, uy, uz)
+        ens.finish()
+        return ens
+
+    # ---- plan one cycle per point set up front ---------------------------
+    # Variable groups sharing their analysis points (same stagger) go into
+    # ONE cycle call, which shares point ordering, candidate culling,
+    # gathers and obs tables across the groups (ops/cycle.py).  Analysis
+    # points and exact budgets take host round trips, so planning stays out
+    # of the pipelined loop below.
+    def _cycle_group(members):
+        ivars = tuple(iv for iv, _, _ in members)
+        return CycleGroup(
+            ivars=ivars,
+            inflats=tuple((k_ens - 1) / infl.multi_infl[iv] for iv in ivars),
+            rtpp_alpha=tuple(infl.rtpp_alpha[iv] if infl.use_rtpp[iv]
+                             else 0.0 for iv in ivars),
+            rtps_alpha=tuple(infl.rtps_alpha[iv] if infl.use_rtps[iv]
+                             else 0.0 for iv in ivars))
+
+    by_pts: Dict[Tuple[int, int], list] = {}
+    for _, members in _group_variables(cfg, platforms):
+        spec0 = members[0][2]
+        by_pts.setdefault((spec0.hstag, spec0.vstag), []).append(members)
+
+    plans = []
+    for members_lists in by_pts.values():
+        pts, dims = points_for(members_lists[0][0][2])
+        pts_d = torch.from_numpy(pts).to(device)
+        cgroups = tuple(_cycle_group(members) for members in members_lists)
+        budgets = plan_cycle_budgets(pts_d, platforms, cgroups, chunk=chunk,
+                                     solver_dtype=solver_dtype)
+        plans.append(dict(
+            members=[mv for members in members_lists for mv in members],
+            groups=cgroups, pts_d=pts_d, dims=dims, budgets=budgets))
+    _sync(device)
+    metrics.stage("plan_groups")
+
+    # ---- pipelined load -> compute -> store ------------------------------
+    # The reference overlaps its obs broadcasts with compute (issued
+    # cwb_letkf.f90:55-57, awaited letkf_core.f90:50); here the host reads
+    # point set g+1's fields and queues their copy and update behind g's,
+    # then fetches g's result.
+    def launch(plan):
+        specs = [spec for _, _, spec in plan["members"]]
+        ux, uy, uz = plan["dims"]
+        t0 = time.time()
+        xb_d = torch.from_numpy(
+            ens.load_group(specs, ux, uy, uz)).to(device)      # [B, V, k]
+        load_s = time.time() - t0
+        xa, diag = update_points_cycle(
+            xb_d, plan["pts_d"], platforms, plan["groups"],
+            weight_function=cfg.weight_function, solver_dtype=solver_dtype,
+            chunk=chunk, max_blocks=plan["budgets"] or None,
+            return_diagnostics=True)
+        return xa, diag, load_s, time.time() - t0
+
+    def drain(plan, launched):
+        t0 = time.time()
+        xa, diag, load_s, launch_s = launched
+        members = plan["members"]
+        names = [v for _, v, _ in members]
+        specs = [spec for _, _, spec in members]
+        tq = [vi for vi, spec in enumerate(specs) if spec.tune_q]
+        if tq:
+            xa[:, tq] = tune_q(xa[:, tq])  # letkf_core.f90:252-278
+        ens.store_group(specs, xa.cpu().numpy(), *plan["dims"])
+        overflow = int(diag["bucket_overflow"])
+        if overflow:
+            # planned budgets make this impossible; reaching it means obs
+            # were silently dropped
+            warnings.warn(
+                f"group {'+'.join(names)}: bucketed accumulation dropped "
+                f"{overflow} candidate block(s); analysis is missing obs.",
+                RuntimeWarning, stacklevel=2)
+        # the group's own host seconds, its launch and its drain: the
+        # update call may return only once the device is done, so the
+        # seconds between the two belong to the next group's launch
+        metrics.add_group(names, int(plan["pts_d"].shape[0]),
+                          launch_s + time.time() - t0,
+                          bucket_overflow=overflow,
+                          ns_residual=float(diag["ns_residual"]),
+                          load_s=load_s)
+
+    inflight = None
+    for gi, plan in enumerate(plans):
+        timer.stamp("update " + "+".join(v for _, v, _ in plan["members"]))
+        nxt = launch(plan)       # host read + copy behind g-1's compute
+        if inflight is not None:
+            drain(plans[gi - 1], inflight)
+        inflight = nxt
+    if inflight is not None:
+        drain(plans[-1], inflight)
+    ens.finish()
+    _sync(device)
+    metrics.stage("update")
+    return ens

@@ -1,0 +1,5 @@
+"""File I/O: WRF NetCDF ensembles (port of the JAX package's ``io``)."""
+
+from .netcdf import NetcdfReader, NetcdfWriter, open_wrf
+
+__all__ = ["NetcdfReader", "NetcdfWriter", "open_wrf"]

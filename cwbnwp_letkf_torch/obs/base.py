@@ -9,9 +9,11 @@ localization search and the ``max_lz_pts`` cap apply to), each carrying
 from __future__ import annotations
 
 from dataclasses import dataclass, fields
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
+
+from ..config import MAX_VARS, LetkfConfig
 
 #: GTS platform families assimilated by the solver and their observed
 #: variables in file/column order (module_letkf_core.f90:338-418).
@@ -83,6 +85,39 @@ class PlatformStatic:
 
     def active(self, ivar: int) -> bool:
         return any(self.assim_mask(ivar))
+
+
+def platform_statics_from_config(cfg: LetkfConfig) -> List[PlatformStatic]:
+    """The static platform table of a run config.
+
+    Only enabled platforms (``use_it``) appear: the same gate as the
+    reference's tree construction (module_localization.f90:74,113).
+    """
+    out: List[PlatformStatic] = []
+    for name, vars_ in GTS_FAMILY_VARS.items():
+        p = cfg.gts_platform(name)
+        if not p.use_it:
+            continue
+        out.append(PlatformStatic(
+            name=name, kind="gts", nvar=len(vars_), max_lz_pts=p.max_lz_pts,
+            hclr=tuple(p.hclr), vclr=tuple(p.vclr),
+            err_muti=tuple(p.var(v).err_muti for v in vars_),
+            err_rej=tuple(p.var(v).err_rej for v in vars_),
+            is_assim=tuple(tuple(p.var(v).is_assim) for v in vars_)))
+    for name in RADAR_VARS:
+        r = cfg.radar.var(name)
+        if not r.use_it:
+            continue
+        out.append(PlatformStatic(
+            name=name, kind="radar", nvar=1, max_lz_pts=r.max_lz_pts,
+            hclr=tuple(r.hclr), vclr=tuple(r.vclr),
+            err_muti=(r.error,),      # module_letkf_core.f90:488,502
+            err_rej=(r.err_rej,),
+            # radar assimilation is gated by hclr > 0 alone
+            # (module_letkf_core.f90:487,491)
+            is_assim=(tuple(True for _ in range(MAX_VARS)),),
+            is_dbz=(name == "dbz")))
+    return out
 
 
 def make_platform_obs(

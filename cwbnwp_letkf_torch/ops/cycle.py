@@ -19,6 +19,9 @@ accumulation.  Accumulation runs on sub-chunks of points (default 512: a
 Hilbert sub-chunk's candidate set is far smaller than a 4096-point chunk's);
 the k-by-k solves run per outer chunk (default 4096), where the batched
 Newton-Schulz solve is efficient.  The chunk loops are eager Python loops.
+The tables, the accumulation and the solve run in ``solver_dtype``; float32
+(the default) takes the Newton-Schulz kernel on a card, float64 the float64
+eigendecomposition.
 """
 from __future__ import annotations
 
@@ -104,13 +107,13 @@ def _wide_metric(st, groups, clients) -> Tuple[float, float]:
     return max(hs), wide_v
 
 
-def _cycle_blocking(dp, masks, wide_h, wide_v, block_size,
+def _cycle_blocking(dp, masks, wide_h, wide_v, block_size, dtype,
                     geometry_only: bool = False) -> CycleBlocking:
     """Hilbert-block the records in the wide metric, raw coords retained.
 
     The reorder and padding act on the small per-record statistics before
     the table build (:func:`.dense.fused_platform_table`), so the peak memory
-    is one table.  ``geometry_only`` skips the tables.
+    is one table, in ``dtype``.  ``geometry_only`` skips the tables.
     """
     hb = hilbert_blocks(normalize_coords(dp.xyz, wide_h, wide_v), block_size)
     nb, s = hb.rec_mask.shape
@@ -118,7 +121,8 @@ def _cycle_blocking(dp, masks, wide_h, wide_v, block_size,
     nvalid_by_mask: Tuple[torch.Tensor, ...] = ()
     if not geometry_only:
         pairs = [fused_platform_table(dp.stats, m, order=hb.order,
-                                      pad_to=nb * s) for m in masks]
+                                      pad_to=nb * s, dtype=dtype)
+                 for m in masks]
         fused_by_mask = tuple(f.view(nb, s, -1) for f, _ in pairs)
         nvalid_by_mask = tuple(nv.view(nb, s) for _, nv in pairs)
     return CycleBlocking(xyz_raw=pad_last(dp.xyz[hb.order], hb.pad),
@@ -132,13 +136,15 @@ def _resolve_plans(
     groups: Sequence[CycleGroup],
     *,
     max_blocks: Dict[str, BucketBudget] | None,
+    dtype=torch.float32,
     geometry_only: bool = False,
 ) -> List[PlatformPlan]:
     """Every active platform's cycle plan, cached on the platform.
 
     A platform with at least ``BUCKET_MIN_RECORDS`` records takes the
-    bucketed path, a smaller one the dense path.  ``geometry_only`` (budget
-    planning) builds no fused tables.
+    bucketed path, a smaller one the dense path.  The fused tables are built
+    in ``dtype`` and cached per dtype; ``geometry_only`` (budget planning)
+    builds none.
     """
     plans: List[PlatformPlan] = []
     for dp in platforms:
@@ -159,7 +165,7 @@ def _resolve_plans(
         cache = dp.cache if dp.cache is not None else {}
         tables = []
         if kind == "dense" and not geometry_only:
-            tables = [dense_table(dp, m, torch.float32) for m in masks]
+            tables = [dense_table(dp, m, dtype) for m in masks]
         wide_h, wide_v = _wide_metric(st, groups, clients)
         centers = []
         for gi in clients:
@@ -172,14 +178,14 @@ def _resolve_plans(
             planned = (max_blocks or {}).get(st.name)
             bs = (planned.block_size if planned is not None else
                   auto_block_size(normalize_coords(dp.xyz, wide_h, wide_v)))
-            bkey = ("cycle", tuple(masks), wide_h, wide_v, bs)
+            bkey = ("cycle", tuple(masks), str(dtype), wide_h, wide_v, bs)
             # a full blocking serves a geometry-only request as well
             blocking = cache.get(bkey + (False,))
             if blocking is None and geometry_only:
                 blocking = cache.get(bkey + (True,))
             if blocking is None:
                 blocking = _cycle_blocking(dp, masks, wide_h, wide_v, bs,
-                                           geometry_only=geometry_only)
+                                           dtype, geometry_only=geometry_only)
                 cache[bkey + (geometry_only,)] = blocking
             budget = (min(planned.max_blocks, blocking.n_blocks)
                       if planned is not None
@@ -269,18 +275,20 @@ def plan_cycle_budgets(
     *,
     chunk: int = 4096,
     subchunk: int = 512,
+    solver_dtype=torch.float32,
 ) -> Dict[str, BucketBudget]:
     """Exact per-platform candidate budgets for the cycle's subchunks.
 
     Culls in each bucketed platform's wide client metric at the subchunking
     :func:`update_points_cycle` will use with the same ``chunk`` and
     ``subchunk``, and rounds each budget up to a multiple of 16, so planned
-    budgets never overflow.
+    budgets never overflow.  ``solver_dtype`` is the one the update will
+    take: a full blocking of that dtype, if cached, serves the planning.
     """
     q = points_xyz
     b = q.shape[0]
     plans = _resolve_plans(platforms, groups, max_blocks=None,
-                           geometry_only=True)
+                           dtype=solver_dtype, geometry_only=True)
     perm = _cycle_point_perm(q, plans)
     if perm is not None:
         q = q[perm]
@@ -315,19 +323,20 @@ def _cycle_point_perm(q, plans):
 
 
 def accumulate_chunk(q_chunk, plans, groups, *, k: int, weight_function: int,
-                     subchunk: int):
+                     subchunk: int, dtype=torch.float32):
     """Every group's normal terms for one outer chunk of points.
 
     ``q_chunk`` ``[C, 3]`` raw points, accumulated ``subchunk`` points at a
-    time against every platform plan.  Returns ``(a [G, C, k, k],
-    g [G, C, k], count [G, C] int32, overflow)`` with ``overflow`` a 0-d
-    int64 count of dropped candidate blocks.
+    time against every platform plan (whose tables are in ``dtype``).
+    Returns ``(a [G, C, k, k], g [G, C, k], count [G, C] int32, overflow)``
+    with ``a`` and ``g`` in ``dtype`` and ``overflow`` a 0-d int64 count of
+    dropped candidate blocks.
     """
     c = q_chunk.shape[0]
     n_groups = len(groups)
     dev = q_chunk.device
-    a = torch.zeros((n_groups, c, k, k), dtype=torch.float32, device=dev)
-    g = torch.zeros((n_groups, c, k), dtype=torch.float32, device=dev)
+    a = torch.zeros((n_groups, c, k, k), dtype=dtype, device=dev)
+    g = torch.zeros((n_groups, c, k), dtype=dtype, device=dev)
     cnt = torch.zeros((n_groups, c), dtype=torch.int32, device=dev)
     ovf = torch.zeros((), dtype=torch.int64, device=dev)
     for s0 in range(0, c, subchunk):
@@ -359,6 +368,7 @@ def update_points_cycle(
     chunk: int = 4096,
     subchunk: int = 512,
     max_blocks: Dict[str, BucketBudget] | None = None,
+    solver_dtype=torch.float32,
     return_diagnostics: bool = False,
 ):
     """Fused LETKF update of several variable groups at shared points.
@@ -372,6 +382,7 @@ def update_points_cycle(
       max_blocks: per-platform budgets from :func:`plan_cycle_budgets`
               (None = heuristic; watch the overflow diagnostic).
       chunk / subchunk: solve batch size / accumulation cull granularity.
+      solver_dtype: dtype of the tables, the accumulation and the solve.
 
     Returns ``xa [B, V_total, k]`` in ``xb``'s dtype, and with
     ``return_diagnostics`` also ``{"bucket_overflow", "ns_residual"}`` as
@@ -379,7 +390,7 @@ def update_points_cycle(
     """
     q = points_xyz
     b, v_tot, k = xb.shape
-    check_ensemble_size(k, xb.device)  # the cycle solves in float32
+    check_ensemble_size(k, xb.device, solver_dtype)
     if q.shape != (b, 3):
         raise ValueError(f"points_xyz must be [{b}, 3], got {tuple(q.shape)}")
     sizes = [len(grp.ivars) for grp in groups]
@@ -389,7 +400,8 @@ def update_points_cycle(
     for s_ in sizes:
         col0.append(col0[-1] + s_)
 
-    plans = _resolve_plans(platforms, groups, max_blocks=max_blocks)
+    plans = _resolve_plans(platforms, groups, max_blocks=max_blocks,
+                           dtype=solver_dtype)
     perm = _cycle_point_perm(q, plans)
     chunk, sub = _subchunk(b, chunk, subchunk)
     xa = torch.empty((b, v_tot, k), dtype=xb.dtype, device=xb.device)
@@ -401,7 +413,7 @@ def update_points_cycle(
         xbc = xb[rows]
         a, g, cnt, o = accumulate_chunk(q[rows], plans, groups, k=k,
                                         weight_function=weight_function,
-                                        subchunk=sub)
+                                        subchunk=sub, dtype=solver_dtype)
         # every group's solve, the NS calls stacked by inflation value
         xa_cols, sdiag = letkf_solve_cycle_from_normal(
             list(a), list(g),
@@ -409,7 +421,7 @@ def update_points_cycle(
             [grp.inflats for grp in groups], list(cnt > 0),
             rtpp_alpha_groups=[grp.rtpp_alpha for grp in groups],
             rtps_alpha_groups=[grp.rtps_alpha for grp in groups],
-            return_diagnostics=True)
+            solver_dtype=solver_dtype, return_diagnostics=True)
         xa[rows] = torch.cat(xa_cols, 1)
         ovf += o
         resid = torch.maximum(resid, sdiag["ns_residual"])

@@ -76,6 +76,42 @@ def test_cycle_matches_jax(case, weight_function):
     assert not np.array_equal(xa[:, 0].numpy(), xb_v[:, 0])
 
 
+def test_cycle_float64_matches_jax(case):
+    """The cycle's float64 solve against the JAX package's, at the float64
+    tolerance of tests/test_torch_update.py:153: the tables, the
+    accumulation and the solve all run in float64, on float64 inputs."""
+    pts, xb_v, plats = case
+    pts, xb_v = pts.astype(np.float64), xb_v.astype(np.float64)
+    plats = [(st, po._replace(**{n: getattr(po, n).astype(np.float64)
+                                 for n in po._fields}))
+             for st, po in plats]
+    jplats = [jupdate.prepare_platform(st, po) for st, po in plats]
+    jgroups = [jcycle.CycleGroup(*f) for f in group_fields()]
+    jbudgets = jcycle.plan_cycle_budgets(
+        jnp.asarray(pts), jplats, jgroups, chunk=CHUNK, subchunk=SUB,
+        solver_dtype=jnp.float64)
+    xa_j = jcycle.update_points_cycle(
+        jnp.asarray(xb_v), jnp.asarray(pts), jplats, jgroups,
+        weight_function=0, chunk=CHUNK, subchunk=SUB, max_blocks=jbudgets,
+        solver_dtype=jnp.float64)
+
+    tplats = [update.prepare_platform(*to_port(st, po), device="cpu")
+              for st, po in plats]
+    tgroups = [cycle.CycleGroup(*f) for f in group_fields()]
+    budgets = cycle.plan_cycle_budgets(
+        torch.from_numpy(pts), tplats, tgroups, chunk=CHUNK, subchunk=SUB,
+        solver_dtype=torch.float64)
+    assert budgets == jbudgets
+    xa, diag = cycle.update_points_cycle(
+        torch.from_numpy(xb_v), torch.from_numpy(pts), tplats, tgroups,
+        weight_function=0, chunk=CHUNK, subchunk=SUB, max_blocks=budgets,
+        solver_dtype=torch.float64, return_diagnostics=True)
+    assert xa.dtype == torch.float64 and int(diag["bucket_overflow"]) == 0
+    np.testing.assert_allclose(xa.numpy(), np.asarray(xa_j), rtol=1e-8,
+                               atol=1e-10)
+    np.testing.assert_array_equal(xa[:, -1].numpy(), xb_v[:, -1])
+
+
 def test_accumulate_chunk_counts_match_cycle_plans(case):
     """The factored per-chunk accumulation: shapes, exact counts, no overflow."""
     pts, _, plats = case
@@ -109,13 +145,15 @@ def test_port_imports_without_jax():
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, 'cwbnwp_letkf_torch.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
-        "for mod in ('cycle', 'update', 'solver', 'jacobi_eigh', 'eigh_kernel', 'ns_kernel', 'cuda_build'):\n"
-        "    assert 'cwbnwp_letkf_torch.ops.' + mod in names, names\n"
+        "for mod in ('ops.cycle', 'ops.update', 'ops.solver', 'ops.jacobi_eigh', 'ops.eigh_kernel',\n"
+        "            'ops.ns_kernel', 'ops.cuda_build', 'driver', 'config', 'projection', 'metrics',\n"
+        "            'models.state', 'models.vcoord', 'io.netcdf'):\n"
+        "    assert 'cwbnwp_letkf_torch.' + mod in names, names\n"
         "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=root,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 17
+    assert int(out.stdout.split()[-1]) >= 28
     for path in (root / "cwbnwp_letkf_torch").rglob("*.py"):
         text = path.read_text()
         assert "import jax" not in text and "cwbnwp_letkf_tpu" not in text, path
