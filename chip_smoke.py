@@ -61,7 +61,25 @@ Phases, in order; any failure raises and the exit code is not 0:
    increment per variable (``F32_ULPS`` where that is below one float32
    spacing) -> a control, the fused run with K1's Z off by ``Z_FAULT``,
    which every variable's limit must fail -> ``write_ensemble``, read back
-   equal.
+   equal;
+10. the command a user runs, ``cli.main`` (``python -m
+   cwbnwp_letkf_torch.cli``), from input files to analysis files:
+   (a) on ``synthetic_case.generate_case`` at its defaults (k=8, 24x20x6,
+   40 stations): the card's output files held against the CLI's on the
+   CPU (``--platform cpu``, the plain versions) within ``XA_RTOL`` of the
+   increment, the analysis RMSE below 0.7 of the prior's, ``--stream``
+   against eager on the card; (b) at full width: phase 9's 40 member files
+   written again, its namelist with ``write_analy_mean = T``, and synop
+   (``gts_letkf_###`` with an ``obs_gts`` altitude for every station), vr
+   (``VR_letkf_###``) and dbz (``MR_letkf_###``) records at uniform
+   lon/lat over the domain, written with the port's writers: the CLI eager
+   (the native parser for every file, K1 alone and as often as phase 9,
+   K1 against its plain version on the run's first batch, finite, no
+   overflow, converged, T's analysis-mean RMSE lower, the mean file the
+   member mean, the variables outside ``var_update`` byte-equal to the
+   prior; the stage seconds, records parsed/s, var-point updates/s, K1
+   seconds and peak device memory printed), then ``--stream``, held
+   against eager.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after; the launches made to compare a kernel with its plain
@@ -74,11 +92,14 @@ object).  The port is imported from this directory,
 so the script fails when run alone, and it fails without a card.
 """
 import contextlib
+import io
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -887,6 +908,10 @@ VAR_UPDATE = ("U", "V", "W", "T", "QVAPOR", "QRAIN", "QSNOW", "QGRAUP",
               "PH")
 #: the radar retrievals of PLATFORMS (their error comes from the namelist)
 RADAR = ("vr", "dbz")
+#: WRF's base-state scalars in phase 9's member files (the values of
+#: tests/test_state_io.py's 2-moment members)
+BASE_STATE = {"T00": 290.0, "P00": 1e5, "TLP": 50.0, "TISO": 0.0,
+              "P_STRAT": 0.0, "TLP_STRAT": -11.0, "P_TOP": 5e3}
 #: phase 9's per-variable run against the fused one: the limit is
 #: XA_RTOL of the increment, or F32_ULPS float32 spacings of the field's
 #: largest value where XA_RTOL of the increment is below one spacing.  That
@@ -901,13 +926,15 @@ Z_FAULT = 1e-2
 
 def driver_namelist(k):
     """The production namelist's shape (input.nml:7, 38-55, 160-170) for
-    PROD_GROUPS, PLATFORMS, MULTI_INFL and RTPP/RTPS."""
+    PROD_GROUPS, PLATFORMS, MULTI_INFL and RTPP/RTPS, with the analysis
+    mean file asked for (``write_analy_mean``, the default, stated)."""
     def row(vals):
         return ", ".join(f"{v:g}" for v in vals)
 
     lines = ["&control", f" nmember = {k}",
              " var_update = " + ", ".join(f"'{v}'" for v in VAR_UPDATE),
-             " weight_function = 0", " wrf_mp_physics = 9", "/",
+             " weight_function = 0", " wrf_mp_physics = 9",
+             " write_analy_mean = T", "/",
              "&projection"]
     lines += [f" {key} = {val}" for key, val in PROJECTION.items()]
     lines += ["/", "&observations"]
@@ -933,8 +960,10 @@ def driver_namelist(k):
 
 
 def write_wrf_case(d, rng, grid, k):
-    """``k`` Milbrandt member files in ``d``, written through the port's
-    NetcdfWriter from a template that holds the geometry and base state.
+    """``k`` Milbrandt member files ``wrfinput_nc_###`` in ``d`` (the CLI's
+    names), written through
+    the port's NetcdfWriter from a template that holds the geometry and
+    base state.
 
     Every field is one smooth, spatially correlated member perturbation
     ``dxb`` (obs.synthetic.correlated_ensemble over the projected mass grid,
@@ -988,11 +1017,18 @@ def write_wrf_case(d, rng, grid, k):
             "U": ("bottom_top",) + d2u, "V": ("bottom_top",) + d2v,
             "T": d3, "PB": d3, "P": d3, "QVAPOR": d3}
     dims.update({name: d3 for name in VAR_UPDATE[5:13]})
+    # the base-state scalars and eta levels read_ensemble derives the
+    # 2-moment schemes' dry-air density from (grid.f90:369-441), as the CLI
+    # reads the members
+    dims.update({name: () for name in BASE_STATE},
+                ZNW=("bottom_top_stag",), ZNU=("bottom_top",))
     for name, dd in dims.items():
         f.createVariable(name, np.float32, ("Time",) + dd)
+    znw = np.linspace(1.0, 0.0, nz + 1)
     fixed = {"HGT": np.zeros((nx, ny)), "MUB": np.full((nx, ny), 9.5e4),
              "PHB": lev(np.ones((nx, ny)), nz + 1) * (9.81 * z_w),
-             "PB": lev(np.ones((nx, ny)), nz) * (1e5 - 4e3 * np.arange(nz))}
+             "PB": lev(np.ones((nx, ny)), nz) * (1e5 - 4e3 * np.arange(nz)),
+             "ZNW": znw, "ZNU": 0.5 * (znw[1:] + znw[:-1]), **BASE_STATE}
     for sfx, (xs, ys) in (("", (lons, lats)), ("_U", (lons_u, lats)),
                           ("_V", (lons, lats_v))):
         fixed["XLONG" + sfx], fixed["XLAT" + sfx] = np.meshgrid(
@@ -1017,7 +1053,7 @@ def write_wrf_case(d, rng, grid, k):
         return out
 
     def write_member(m):
-        path = str(d / f"wrfinput_d01_{m + 1:03d}")
+        path = str(d / f"wrfinput_nc_{m + 1:03d}")
         with NetcdfReader(tpl) as src, NetcdfWriter(path) as dst:
             dst.copy_header_from(src)
             for name, arr in member_fields(m).items():
@@ -1117,9 +1153,6 @@ def phase_driver(dev, smi_line, grid=GRID, k=K, chunk=CHUNK):
     """Phase 9: ``driver.run_analysis`` on WRF member files; returns the K1
     launches of the fused run and K1's ``max|dZ|`` against its plain version
     on the run's first batch."""
-    import tempfile
-    from pathlib import Path
-
     from cwbnwp_letkf_torch import driver
     from cwbnwp_letkf_torch.config import LetkfConfig
     from cwbnwp_letkf_torch.io.netcdf import NetcdfReader
@@ -1275,6 +1308,314 @@ def phase_driver(dev, smi_line, grid=GRID, k=K, chunk=CHUNK):
     return fused_launches, err
 
 
+#: phase 10: the StageTimer stages of the CLI, as (name, stamp that opens
+#: it, stamp that closes it), in the JAX CLI's text
+CLI_STAGES = (("read namelist", "reading namelist", "reading model data"),
+              ("read model data", "reading model data", "read obs data"),
+              ("read obs data", "read obs data", "get into letkf core"),
+              ("letkf core", "get into letkf core", "finish letkf core"),
+              ("write", "finish letkf core", "finish all steps"))
+#: --stream against eager (tests/test_streaming.py:24-61): P, PH and MU
+#: ride on base states, which the eager path round-trips through float32
+STREAM_BASE_ATOL = {"MU": 0.05, "P": 0.05, "PH": 0.05}
+#: phase 10(b)'s obs_gts: the WRFDA layout of tests/test_obs_gts_alt.py,
+#: whose formats the parser reads from the file itself
+OBS_GTS_HEADER = """\
+TOTAL = {n:5d}  MISS. =-888888.
+SYNOP = {n:5d}  METAR =     0  SHIP  =     0  BUOY  =     0  BOGUS =     0  TEMP  =     0
+INFO   = PLATFORM, DATE, NAME, LEVELS, LATITUDE, LONGITUDE, ELEVATION, ID.
+SRFC   = SLP, PW (DATA,QC,ERROR).
+EACH   = PRES, SPEED, DIR, HEIGHT, TEMP, DEW PT, HUMID (DATA,QC,ERROR).
+INFO_FMT  = (A12,1X,A19,1X,A40,1X,I6,3(F12.3,11X),6X,A40)
+SRFC_FMT  = (F12.3,I4,F7.2,F12.3,I4,F7.3)
+EACH_FMT  = (3(F12.3,I4,F7.2),11X,3(F12.3,I4,F7.2))
+#------------------------------------------------------------------------------#
+"""
+
+
+def write_obs_gts(path, ids, lat, lon, alt):
+    """One single-level FM-12 SYNOP report a station: INFO, SRFC and one
+    EACH line whose height is the station's altitude."""
+    def triple(v):
+        return f"{v:12.3f}{0:4d}{1.0:7.2f}"
+
+    lines = [OBS_GTS_HEADER.format(n=len(ids)).rstrip("\n")]
+    for ident, la, lo, h in zip(ids, lat, lon, alt):
+        lines.append(f"{'FM-12 SYNOP':<12s} {'2026-08-17_00:00:00':<19s} "
+                     f"{'SURFACE SYNOPTIC OBSERVATIONS':<40s} {1:6d}"
+                     f"{la:12.3f}{'':11s}{lo:12.3f}{'':11s}{h:12.3f}"
+                     f"{'':11s}{'':6s}{ident:<40s}")
+        lines.append(f"{1013.2:12.3f}{0:4d}{1.0:7.2f}{0.0:12.3f}{0:4d}"
+                     f"{0.2:7.3f}")
+        lines.append(triple(1e5) + triple(5.0) + triple(230.0) + " " * 11
+                     + triple(h) + triple(290.0) + triple(285.0))
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+
+
+def write_cli_obs(d, rng, truth, t_xb, gx, gy, grid):
+    """PLATFORMS' records at uniform lon/lat over the domain as the CLI's
+    input files: ``gts_letkf_###`` (synop, with ``obs_gts``),
+    ``VR_letkf_###`` and ``MR_letkf_###``, one a member, written with the
+    port's writers.  Each record observes T's truth at the column nearest
+    its coordinates as written (lon/lat to 0.01 degree in the GTS files,
+    0.0001 in the radar files); H(xb) is that column's members.  Returns
+    the number of record lines written."""
+    from scipy.spatial import cKDTree
+
+    from cwbnwp_letkf_torch.config import ProjectionConfig
+    from cwbnwp_letkf_torch.obs.gts import GtsRecords, write_member_file
+    from cwbnwp_letkf_torch.obs.radar import write_radar_file
+    from cwbnwp_letkf_torch.projection import LambertProjection
+
+    nx, ny, nz = grid
+    k = t_xb.shape[-1]
+    c_lon, c_lat = PROJECTION["cen_lon"], PROJECTION["cen_lat"]
+    lo = np.array([c_lon - nx / 2 * DLAT, c_lat - ny / 2 * DLAT])
+    hi = np.array([c_lon + (nx / 2 - 1) * DLAT, c_lat + (ny / 2 - 1) * DLAT])
+    proj = LambertProjection.from_config(ProjectionConfig(**PROJECTION))
+    tree = cKDTree(np.stack([gx.ravel(), gy.ravel()], 1))
+    t_cols = t_xb.reshape(-1, k)
+    n_lines = 0
+    for name, nobs, nvar, _, err in PLATFORMS:
+        lonlat = np.round(rng.uniform(lo, hi, (nobs, 2)),
+                          4 if name in RADAR else 2)
+        alt = rng.uniform(0.0, 0.3 * nz * 500.0, nobs)
+        x, y = proj.lonlat_to_xy(lonlat[:, 0], lonlat[:, 1])
+        _, gi = tree.query(np.stack([x, y], 1), k=1)
+        obs = truth.ravel()[gi][None] + rng.normal(0.0, err, (nvar, nobs))
+        n_lines += k * nobs
+        if name in RADAR:
+            prefix = {"vr": "VR", "dbz": "MR"}[name]
+            for m in range(k):
+                write_radar_file(
+                    str(d / f"{prefix}_letkf_{m + 1:03d}"),
+                    np.stack([obs[0], t_cols[gi, m], lonlat[:, 0],
+                              lonlat[:, 1], alt], 1))
+            continue
+        ids = [f"S{i:04d}" for i in range(nobs)]
+        write_obs_gts(str(d / "obs_gts"), ids, lonlat[:, 1], lonlat[:, 0],
+                      alt)
+        for m in range(k):
+            omb = obs - t_cols[gi, m][None]
+            rec = GtsRecords(
+                ids=ids, lat=list(lonlat[:, 1]), lon=list(lonlat[:, 0]),
+                pre=[1000.0] * nobs, obs=obs.T.tolist(), omb=omb.T.tolist(),
+                qc=[[0] * nvar] * nobs, err=[[err] * nvar] * nobs,
+                level=[1] * nobs)
+            write_member_file(str(d / f"gts_letkf_{m + 1:03d}"),
+                              {name: rec})
+    return n_lines
+
+
+def run_cli(*argv):
+    """``cli.main(argv)`` with its standard output captured; returns the
+    wall seconds (after a device synchronize) and the StageTimer stamps as
+    ``{text: seconds}`` (the first of each text)."""
+    from cwbnwp_letkf_torch import cli
+
+    out = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main([str(a) for a in argv])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    check(rc == 0, f"cli.main {argv}: exit code {rc}")
+    stamps = {}
+    for line in out.getvalue().splitlines():
+        if " sec ==========> " in line:
+            sec, text = line.split(" sec ==========> ")
+            stamps.setdefault(text, float(sec))
+    return wall, stamps
+
+
+def stage_seconds(stamps):
+    return {name: round(stamps[b] - stamps[a], 4)
+            for name, a, b in CLI_STAGES}
+
+
+def read_nc(path):
+    from cwbnwp_letkf_torch.io.netcdf import NetcdfReader
+
+    with NetcdfReader(str(path)) as nc:
+        return {n: nc.get_variable(n) for n in nc.variable_names()
+                if n != "Times"}
+
+
+def out_names(k):
+    return [f"wrfout_nc_{m + 1:03d}" for m in range(k)] + ["wrfout_nc_mean"]
+
+
+def check_stream(stream, eager, k, what):
+    """``--stream`` against eager, file for file, with the tolerances of
+    tests/test_streaming.py (the mean file's rtol 1e-5)."""
+    worst = {}
+    for name in out_names(k):
+        s, e = read_nc(stream / name), read_nc(eager / name)
+        check(set(s) == set(e), f"{what} {name}: variables differ")
+        rtol = 1e-5 if name.endswith("mean") else 1e-6
+        for v, arr in e.items():
+            atol = STREAM_BASE_ATOL.get(v, rtol)
+            excess = np.abs(s[v] - arr) - (atol + rtol * np.abs(arr))
+            worst[v] = max(worst.get(v, -np.inf), float(excess.max()))
+            check(worst[v] <= 0, f"{what} {name} {v}: --stream off eager by "
+                  f"{worst[v]} beyond the tolerance")
+    return worst
+
+
+def phase_cli_synthetic(root):
+    """Phase 10(a): the CLI on ``generate_case``'s default case, on the card
+    against the CPU, and ``--stream`` against eager on the card."""
+    from cwbnwp_letkf_torch.synthetic_case import generate_case, score_case
+
+    d = root / "synthetic"
+    case = generate_case(str(d / "in"))
+    k, updated = case.k, ("T", "QVAPOR")
+    reset_counts()
+    wall, _ = run_cli("--input", d / "in", "--output", d / "card", "--quiet")
+    counts = read_counts()
+    print(f"  synthetic case (k={k}, {case.nx}x{case.ny}x{case.nz}, "
+          f"{len(case.obs_lon)} stations): card {wall:.3f} s, kernel "
+          f"launches {counts}")
+    check(counts["ns_invsqrt"] > 0, "synthetic case: K1 not launched")
+    wall_cpu, _ = run_cli("--input", d / "in", "--output", d / "cpu",
+                          "--quiet", "--platform", "cpu")
+    incr = {v: 0.0 for v in updated}
+    for m in range(k):
+        ref = read_nc(d / "cpu" / f"wrfout_nc_{m + 1:03d}")
+        prior = read_nc(d / "in" / f"wrfinput_nc_{m + 1:03d}")
+        for v in updated:
+            incr[v] = max(incr[v], float(np.abs(ref[v] - prior[v]).max()))
+    gaps = {v: 0.0 for v in updated}
+    for name in out_names(k):
+        got, want = read_nc(d / "card" / name), read_nc(d / "cpu" / name)
+        check(set(got) == set(want), f"synthetic {name}: variables differ")
+        for v, arr in want.items():
+            if v in updated:
+                check(incr[v] > 0, f"synthetic case: {v} not updated")
+                diff = float(np.abs(got[v] - arr).max())
+                gaps[v] = max(gaps[v], diff / incr[v])
+                check(diff <= XA_RTOL * incr[v], f"synthetic {name} {v}: "
+                      f"card vs CPU max|dxa| {diff} > {XA_RTOL} x "
+                      f"{incr[v]}")
+            else:
+                check(np.array_equal(got[v], arr),
+                      f"synthetic {name} {v}: card differs from CPU")
+    scores = score_case(case, str(d / "card"))
+    print(f"  card vs CPU ({wall_cpu:.3f} s): max|dxa| in units of the "
+          f"CPU increment {gaps}; T RMSE prior {scores['rmse_prior']:.4f} "
+          f"-> analysis {scores['rmse_analysis']:.4f}")
+    check(scores["rmse_analysis"] < 0.7 * scores["rmse_prior"],
+          f"synthetic case: RMSE gain below 0.3: {scores}")
+    wall_s, _ = run_cli("--input", d / "in", "--output", d / "stream",
+                        "--quiet", "--stream")
+    worst = check_stream(d / "stream", d / "card", k, "synthetic")
+    print(f"  --stream on the card ({wall_s:.3f} s) against eager: largest "
+          f"excess over the tolerance {max(worst.values()):.3e}")
+
+
+def phase_cli(dev, smi_line, root, launches9, grid=GRID, k=K, chunk=CHUNK):
+    """Phase 10(b): the CLI on phase 9's case as input files; returns K1's
+    launches in the eager run and K1's ``max|dZ|`` against its plain version
+    on that run's first batch."""
+    from cwbnwp_letkf_torch.io import native
+    from cwbnwp_letkf_torch.ops import ns_kernel
+
+    d = root / "bench"
+    inp = d / "in"
+    inp.mkdir(parents=True)
+    t0 = time.time()
+    rng = np.random.default_rng(SEED + 9)
+    _, truth, t_xb, gx, gy = write_wrf_case(inp, rng, grid, k)
+    t_members = time.time() - t0
+    (inp / "input.nml").write_text(driver_namelist(k))
+    n_lines = write_cli_obs(inp, rng, truth, t_xb, gx, gy, grid)
+    print(f"  input: {k} member files of {grid[0]}x{grid[1]}x{grid[2]} in "
+          f"{t_members:.2f} s; {n_lines} record lines (synop, vr, dbz) and "
+          f"obs_gts in {time.time() - t0 - t_members:.2f} s")
+
+    def eager_run(out, *extra):
+        native.reset_parses()
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        with timed_launches(ns_kernel) as events, \
+                first_input(ns_kernel) as firsts:
+            wall, stamps = run_cli("--input", inp, "--output", out,
+                                   "--chunk", chunk, "--metrics-json",
+                                   str(out) + ".json", *extra)
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        metrics = json.loads(Path(str(out) + ".json").read_text())
+        check(native.PARSES == {"native": 3 * k, "python": 0},
+              f"CLI {extra}: parsers served {native.PARSES}, expected "
+              f"{3 * k} native")
+        expected = n_ns_launches(metrics["groups"], chunk, MULTI_INFL)
+        check(expected == launches9, f"CLI {extra}: point sets give "
+              f"{expected} K1 launches, phase 9 {launches9}")
+        check_only(counts, "ns_invsqrt", expected, f"CLI {' '.join(extra)}"
+                   f" ({len(metrics['groups'])} point sets)")
+        for g in metrics["groups"]:
+            check(g["bucket_overflow"] == 0,
+                  f"{g['variables']}: bucket overflow {g['bucket_overflow']}")
+            check(g["ns_residual"] <= NS_TOL,
+                  f"{g['variables']}: ns_residual {g['ns_residual']}")
+        stages = stage_seconds(stamps)
+        print(f"  {smi_line}: CLI {' '.join(extra) or 'eager'}: wall "
+              f"{wall:.3f} s, stages {stages}; {n_lines} records parsed in "
+              f"{stages['read obs data']} s "
+              f"({n_lines / stages['read obs data']:.1f} records/s); "
+              f"run_analysis stages {metrics['stages_s']}, "
+              f"{metrics['var_points_per_s']} var-point updates/s "
+              f"(total_var_points {metrics['total_var_points']} / "
+              f"update_wall_s {metrics['update_wall_s']}); K1 "
+              f"{launch_seconds(events):.4f} s on the card in {len(events)}"
+              f" launches (CUDA events around each); peak device memory "
+              f"{peak:.3f} GiB")
+        check(len(firsts) == 1, f"CLI {extra}: no K1 batch captured")
+        return counts["ns_invsqrt"], firsts[0]
+
+    out, out_s = d / "eager", d / "stream"
+    launches, (stack, (inflat,)) = eager_run(out)
+    check(tuple(stack.shape[1:]) == (k, k),
+          f"CLI: first K1 batch {tuple(stack.shape)}")
+    err = compare_kernel(stack, inflat, f"CLI first chunk "
+                         f"{list(stack.shape)}, inflat {inflat:.4f}")
+    del stack
+    eager_run(out_s, "--stream")
+
+    t0 = time.time()
+    acc = {}
+    for m in range(k):
+        got = read_nc(out / f"wrfout_nc_{m + 1:03d}")
+        prior = read_nc(inp / f"wrfinput_nc_{m + 1:03d}")
+        check(set(got) == set(prior), f"member {m + 1}: variables differ")
+        for v, arr in got.items():
+            if v in VAR_UPDATE:
+                check(bool(np.isfinite(arr).all()),
+                      f"member {m + 1} {v}: not finite")
+                acc[v] = acc.get(v, 0.0) + arr.astype(np.float64)
+            else:
+                check(np.array_equal(arr, prior[v]), f"member {m + 1} {v}: "
+                      "outside var_update, differs from the prior")
+    mean = read_nc(out / "wrfout_nc_mean")
+    for v, total in acc.items():
+        np.testing.assert_allclose(
+            mean[v], total / k, rtol=1e-5, atol=STREAM_BASE_ATOL.get(v, 1e-5),
+            err_msg=f"mean file {v} is not the member mean")
+    truth_t = truth[:, :, None]
+    rmse_b = float(np.sqrt(((t_xb.mean(-1)[:, :, None] - truth_t) ** 2)
+                           .mean()))
+    rmse_a = float(np.sqrt(((mean["T"] - truth_t) ** 2).mean()))
+    print(f"  T mean RMSE background {rmse_b:.4f} -> analysis "
+          f"{rmse_a:.4f}; members finite, the rest byte-equal to the prior, "
+          f"the mean file the member mean ({time.time() - t0:.2f} s)")
+    check(rmse_a < rmse_b, "CLI: T analysis RMSE not lower")
+    worst = check_stream(out_s, out, k, "bench")
+    print(f"  --stream against eager: largest excess over the tolerance "
+          f"{max(worst.values()):.3e}")
+    return launches, err
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1354,6 +1695,19 @@ def main():
         record["ns_invsqrt"]["launches_run_analysis"] = launches9
         record["ns_invsqrt"]["max_abs_err"] = max(
             record["ns_invsqrt"]["max_abs_err"], err9)
+
+        print("phase 10: the CLI, input files to analysis files")
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+            t0 = time.time()
+            phase_cli_synthetic(Path(tmp))
+            print(f"  (a) in {time.time() - t0:.1f} s")
+            t0 = time.time()
+            launches10, err10 = phase_cli(dev, smi_line, Path(tmp),
+                                          launches9)
+            record["ns_invsqrt"]["launches_cli"] = launches10
+            record["ns_invsqrt"]["max_abs_err"] = max(
+                record["ns_invsqrt"]["max_abs_err"], err10)
+            print(f"  (b) in {time.time() - t0:.1f} s")
     print(f"all phases passed in {time.time() - t_start:.1f} s")
 
     kernels = []

@@ -1,0 +1,213 @@
+"""Command-line driver: the reference's ``cwb_letkf.f90`` pipeline, on a card.
+
+    python -m cwbnwp_letkf_torch.cli --input DIR --output DIR
+
+Port of the JAX package's ``cli.py``, with its options, its defaults and its
+file conventions (cwb_letkf.f90:26,42,49-51,70,76).  The defaults of
+``--input`` and ``--output`` are the reference's ``../input`` and
+``../output``, relative to the working directory, so a caller run from a
+checkout passes both, as the tests and ``chip_smoke.py`` do:
+
+    <input>/input.nml              namelist config
+    <input>/wrfinput_nc_###        prior members (3-digit, 1-based)
+    <input>/gts_letkf_###          per-member GTS omboma files
+    <input>/obs_gts                station-altitude ASCII (optional)
+    <input>/VR_letkf_### MR_letkf_###   radar radial-velocity/reflectivity
+    <output>/wrfout_nc_###         analysis members
+    <output>/wrfout_nc_mean        analysis mean (write_analy_mean)
+
+The reference's main wires only VR and MR radar files (cwb_letkf.f90:50-51)
+even though the radar module supports zdr/kdp; ``--all-radar`` additionally
+reads MD/MK files (framework extension).
+
+The analysis runs on the CUDA card.  ``--platform cpu`` runs it on the CPU
+through the kernels' plain versions, which is for tests; without a card and
+without ``--platform cpu`` the CLI raises before it reads any file.  The
+multi-device update (``--distributed``, or more than one visible card without
+``--no-mesh``) is ROADMAP M11 and the device-time breakdown
+(``--device-breakdown``) is M12: both raise.
+"""
+from __future__ import annotations
+
+import argparse
+import concurrent.futures as cf
+import os
+import sys
+from typing import Dict
+
+import torch
+
+#: ``--platform`` values that select the card; None (no flag) does too
+CUDA_PLATFORMS = ("gpu", "cuda")
+
+
+def build_arg_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="cwbnwp-letkf-torch",
+        description="LETKF analysis for WRF ensembles on a CUDA card")
+    p.add_argument("--input", default="../input", help="input directory")
+    p.add_argument("--output", default="../output", help="output directory")
+    p.add_argument("--namelist", default=None,
+                   help="namelist path (default <input>/input.nml)")
+    p.add_argument("--all-radar", action="store_true",
+                   help="also read MD/MK (zdr/kdp) radar files")
+    p.add_argument("--chunk", type=int, default=4096,
+                   help="analysis points per device batch")
+    p.add_argument("--no-mesh", action="store_true",
+                   help="single-device update (skip sharding)")
+    p.add_argument("--stream", action="store_true",
+                   help="memory-bounded mode: hold one variable group in "
+                        "host RAM at a time (the reference's "
+                        "one-variable-resident pipeline, "
+                        "module_letkf_core.f90:59-297); fields stream from "
+                        "the prior files and analysis writes happen per "
+                        "group instead of all-at-once")
+    p.add_argument("--platform", default=None,
+                   help="the device: 'gpu' or 'cuda' (the card, also the "
+                        "default) or 'cpu' (the kernels' plain versions, "
+                        "for tests)")
+    p.add_argument("--distributed", action="store_true",
+                   help="multi-host mode (not ported yet: ROADMAP M11)")
+    p.add_argument("--coordinator", default=None,
+                   help="coordinator address host:port (distributed)")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
+    p.add_argument("--quiet", action="store_true")
+    p.add_argument("--metrics-json", default=None,
+                   help="write run metrics as one JSON line to this path")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace of the update into "
+                        "this directory (a Chrome trace: Perfetto)")
+    p.add_argument("--device-breakdown", action="store_true",
+                   help="per-stage device time on a sample batch (not "
+                        "ported yet: ROADMAP M12)")
+    return p
+
+
+def select_device(args: argparse.Namespace) -> torch.device:
+    """The device ``args`` asks for; raises for what the port cannot run.
+
+    Called before any file is read, so a refused run reads nothing."""
+    if args.distributed:
+        raise ValueError("--distributed is the multi-host update, which is "
+                         "not ported yet: ROADMAP M11")
+    if args.device_breakdown:
+        raise ValueError("--device-breakdown (profiling.device_breakdown) "
+                         "is not ported yet: ROADMAP M12")
+    if args.platform == "cpu":
+        return torch.device("cpu")
+    if args.platform is not None and args.platform not in CUDA_PLATFORMS:
+        raise ValueError(f"--platform must be 'cpu', 'gpu' or 'cuda', got "
+                         f"{args.platform!r}")
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the analysis runs on the card; "
+                           "pass --platform cpu to run the plain versions "
+                           "on the CPU (for tests)")
+    if torch.cuda.device_count() > 1 and not args.no_mesh:
+        raise ValueError(f"{torch.cuda.device_count()} CUDA devices visible: "
+                         "the sharded update is not ported yet (ROADMAP "
+                         "M11); pass --no-mesh to run on one card")
+    return torch.device("cuda")
+
+
+def main(argv=None) -> int:
+    args = build_arg_parser().parse_args(argv)
+    device = select_device(args)
+
+    from .config import LetkfConfig
+    from .driver import StageTimer, run_analysis
+    from .metrics import RunMetrics
+    from .models.state import (StreamingWrfEnsemble, read_ensemble,
+                               write_ensemble, write_mean)
+    from .obs.gts import parse_obs_gts, read_gts_ensemble
+    from .obs.radar import PREFIX_TO_NAME, read_radar_ensemble
+    from .profiling import maybe_trace
+    from .projection import LambertProjection
+
+    timer = StageTimer(enabled=not args.quiet)
+    metrics = RunMetrics()
+    timer.stamp("reading namelist")
+    nml = args.namelist or os.path.join(args.input, "input.nml")
+    cfg = LetkfConfig.from_namelist(nml)
+    k = cfg.nmember
+    proj = LambertProjection.from_config(cfg.projection)
+
+    def member(stem, m):
+        return os.path.join(args.input, f"{stem}_{m+1:03d}")
+
+    timer.stamp("reading model data")
+    wrf_paths = [member("wrfinput_nc", m) for m in range(k)]
+    out_paths = [os.path.join(args.output, f"wrfout_nc_{m+1:03d}")
+                 for m in range(k)]
+    if args.stream:
+        os.makedirs(args.output, exist_ok=True)
+        ens = StreamingWrfEnsemble(wrf_paths, cfg, out_paths)
+    else:
+        ens = read_ensemble(wrf_paths, cfg)
+
+    timer.stamp("read obs data")
+    obs_data: Dict[str, object] = {}
+    gts_paths = [member("gts_letkf", m) for m in range(k)]
+    if all(os.path.exists(p) for p in gts_paths):
+        alt_path = os.path.join(args.input, "obs_gts")
+        if os.path.exists(alt_path):
+            alt = parse_obs_gts(alt_path)
+        else:
+            # the reference cannot run without obs_gts (it open()s it
+            # unconditionally, gts_omboma.f90:726); we allow it for
+            # synthetic cases but say so — altitudes become 0
+            alt = None
+            print(f"WARNING: no {alt_path}; station altitudes set to 0 "
+                  "(vertical localization of GTS obs is then surface-"
+                  "relative only)", file=sys.stderr)
+        obs_data.update(read_gts_ensemble(gts_paths, proj, alt))
+    prefixes = ("VR", "MR") + (("MD", "MK") if args.all_radar else ())
+    for prefix in prefixes:
+        paths = [member(f"{prefix}_letkf", m) for m in range(k)]
+        if all(os.path.exists(p) for p in paths):
+            po = read_radar_ensemble(paths, proj)
+            if po is not None:
+                obs_data[PREFIX_TO_NAME[prefix]] = po
+
+    timer.stamp("get into letkf core")
+    with maybe_trace(args.profile_dir):
+        run_analysis(cfg, ens, obs_data, chunk=args.chunk, timer=timer,
+                     metrics=metrics, device=device)
+    timer.stamp("finish letkf core")
+
+    os.makedirs(args.output, exist_ok=True)
+    if args.stream:
+        # member analyses were written per group during the cycle; only the
+        # optional mean file remains (read back from the sinks, one field
+        # resident at a time)
+        if cfg.write_analy_mean:
+            timer.stamp("write analysis mean")
+            ens.write_mean(os.path.join(args.output, "wrfout_nc_mean"))
+    else:
+        with cf.ThreadPoolExecutor(max_workers=1) as ex:
+            mean_job = None
+            if cfg.write_analy_mean:
+                # overlap the mean write with the member writes — the
+                # reference runs them concurrently on disjoint ranks
+                # (cwb_letkf.f90:68-77: mean on rank nproc-1 while ranks
+                # 0..k-1 write members); each thread writes its own files
+                timer.stamp("write analysis mean (async)")
+                mean_job = ex.submit(
+                    write_mean, ens,
+                    os.path.join(args.output, "wrfout_nc_mean"))
+
+            timer.stamp("write analysis ensemble")
+            write_ensemble(ens, out_paths)
+            if mean_job is not None:
+                mean_job.result()
+    timer.stamp("finish all steps")
+    if args.metrics_json:
+        with open(args.metrics_json, "w") as fh:
+            fh.write(metrics.to_json() + "\n")
+    elif not args.quiet:
+        print("metrics:", metrics.to_json())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

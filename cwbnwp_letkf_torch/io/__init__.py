@@ -1,4 +1,5 @@
-"""File I/O: WRF NetCDF ensembles (port of the JAX package's ``io``)."""
+"""File I/O: WRF NetCDF ensembles (``netcdf``) and the native observation
+parsers (``native``); port of the JAX package's ``io``."""
 
 from .netcdf import NetcdfReader, NetcdfWriter, open_wrf
 

@@ -355,8 +355,8 @@ class StreamingWrfEnsemble:
     ``load_group`` / ``store_group`` interface the driver uses:
 
     * __init__ reads ONLY geometry, the member-1 base states and the
-      ensemble-mean geopotential (accumulated one member at a time, never
-      holding more than one ``[nx, ny, nz+1]`` field per reader thread);
+      ensemble-mean geopotential (the members' PH held once, as one
+      ``[nx, ny, nz+1, k]`` array, to take the eager path's float32 mean);
     * each analysis output file is pre-created as a byte copy of its prior
       member (untouched variables are thereby copied through, the
       header-clone semantics of netcdf_io.f90:177-374);
@@ -367,8 +367,8 @@ class StreamingWrfEnsemble:
       letkf_core.f90:209-210), converts p/ph/mu back to perturbations and
       rewrites that one variable in the member's sink file in place.
 
-    Peak host memory is therefore O(group staging + one field per reader
-    thread) instead of O(20 full ensemble fields).
+    Peak host memory is therefore O(group staging) instead of O(20 full
+    ensemble fields).
     """
 
     def __init__(self, paths: Sequence[str], cfg: LetkfConfig,
@@ -407,16 +407,22 @@ class StreamingWrfEnsemble:
             self.phb = nc.get_variable("PHB")
             self.mub = nc.get_variable("MUB")
 
-        # mean full geopotential, one member resident at a time per thread
-        def ph_of(p):
-            with NetcdfReader(p) as nc:
-                return nc.get_variable("PH")
+        # mean full geopotential: the eager path's float32 mean of PH + PHB
+        # over the members, on its [nx, ny, nz+1, k] layout, so that both
+        # modes place the analysis points at the same heights (the JAX
+        # package's float64 mean of PH moves them by a float32 rounding,
+        # which moves the analysis by up to ~2e-5 of its increment); the
+        # buffer is one variable's staging, below a group's
+        ph_full = np.empty(self.phb.shape + (self.k,), np.float32)
 
-        acc = np.zeros_like(self.phb, dtype=np.float64)
+        def read_ph(m):
+            with NetcdfReader(paths[m]) as nc:
+                ph_full[..., m] = nc.get_variable("PH") + self.phb
+
         with cf.ThreadPoolExecutor(max_workers=max_workers) as ex:
-            for ph in ex.map(ph_of, paths):
-                acc += ph
-        self._mean_ph = (acc / self.k + self.phb).astype(np.float32)
+            list(ex.map(read_ph, range(self.k)))
+        self._mean_ph = ph_full.mean(axis=-1)
+        del ph_full
 
         # pre-create sinks: full prior copies, later overwritten in place.
         # Hydrometeors are clamped non-negative IN the sink even when not

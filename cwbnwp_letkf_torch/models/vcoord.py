@@ -28,8 +28,7 @@ def mean_geopotential_height(ens: WrfEnsemble) -> np.ndarray:
     """Ensemble-mean z at w-levels: mean(ph_full)/g  [nx, ny, nz+1].
 
     Works for both the eager :class:`.state.WrfEnsemble` and the
-    streaming variant (whose mean was accumulated one
-    member at a time at open, never holding the full [.., k] field).
+    streaming variant, which takes the same float32 mean at open.
     """
     return (ens.mean_ph() / GRAVITY).astype(np.float32)
 
