@@ -79,7 +79,38 @@ Phases, in order; any failure raises and the exit code is not 0:
    member mean, the variables outside ``var_update`` byte-equal to the
    prior; the stage seconds, records parsed/s, var-point updates/s, K1
    seconds and peak device memory printed), then ``--stream``, held
-   against eager.
+   against eager;
+11. the gather path at full width: entries (b) and (c) of phase 8 with
+   ``method="gather"`` (top-k neighbor search and obs gather), (b) under
+   ``"auto"`` (K1) and ``"jacobi"`` (K3), (c) under ``"jacobi"`` (K4) and
+   ``"auto"`` (K1): one launch per chunk, finite, RMSE lower, a warm rerun
+   timed and equal, the card against the CPU's plain versions on a subset
+   (``GATHER_SUBSET``) within ``XA_RTOL`` of the increment, the gap to
+   phase 8's ``method="auto"`` analysis and the points where the cap binds
+   printed, each kernel against its plain version on its first real batch;
+12. ``letkf_solve_group_refined`` (float32 Newton-Schulz, K1, refined by a
+   float64 Newton step) on phase 4's real ``[4096, 40, 40]`` normal
+   matrices, and on phase 13's first ``[2048, 96, 96]`` chunk: within
+   ``REFINED_RTOL`` of the analysis scale of the float64 solve and
+   ``REFINED_GAIN`` times closer to it than the float32 solve, one K1
+   launch per inflation value, points/s of the refined, float32 and
+   float64 solves;
+13. the production shape of ``bench.py:548-717``: 450x450x52 points at
+   3 km (10,530,000), k=96, 200,000 vr records presorted in Hilbert order,
+   planned geometry-only (no table) and run with ``obs_presorted=True`` in
+   slabs of 526,500 points at chunk = subchunk = 2048, as many slabs as
+   ``PROD_BUDGET_S`` allows (the depth cut, at least one): finite, no
+   overflow, converged, K1 once per chunk and against its plain version on
+   the first real ``[2048, 96, 96]`` batch, the first slab equal bit for
+   bit to its run with ``obs_presorted=False``; seconds per slab,
+   var-point updates/s, K1 seconds and mean steps, peak memory and the
+   projection to 20 slabs printed;
+14. the eigen factors under ``"auto"`` (``letkf_weight_factors_from_normal``
+   on a seeded ``[4096, 40, 40]`` batch: K3 once, timed beside
+   ``torch.linalg.eigh`` on the same matrices); ``profiling.device_breakdown``
+   on the bench case (4,096 points): the stages positive and additive, K3
+   launched in the ``eigh`` stage; and ``cli.main --device-breakdown`` on
+   ``generate_case``'s case, its ``device_breakdown`` in ``--metrics-json``.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after; the launches made to compare a kernel with its plain
@@ -160,6 +191,39 @@ SHORT_CONTROL = "4 sweeps + polish"
 #: may take before its batch is cut (the cut is printed and recorded)
 LIBRARY_REPS = 3
 LIBRARY_BUDGET_S = 5.0
+#: phase 11: the CPU parity subsets of the gather entries, every n-th point
+#: of the grid: 8,192 points for the Newton-Schulz entries and 1,024 for the
+#: Jacobi ones, whose plain versions take about 5 s (K3) and 13 s (K4) a
+#: thousand matrices on the CPU
+GATHER_SUBSET = {"auto": 8192, "jacobi": 1024}
+#: phase 11's runs: (entry, backend, kernel, the kernel's launch module)
+GATHER_RUNS = (("b", "auto", "ns_invsqrt"), ("b", "jacobi", "jacobi_parallel"),
+               ("c", "jacobi", "jacobi_cyclic"), ("c", "auto", "ns_invsqrt"))
+#: phase 12: the refined-solve setting of bench.py:455-476, two variables at
+#: inflation 1.1 and 1.6, RTPP = RTPS = 0.95, held against the float64 solve
+#: within REFINED_RTOL of the analysis scale (tests/test_ns_solver.py:144-163)
+REFINED_INFL = (1.1, 1.6)
+REFINED_RTOL = 1e-6
+#: and at least this many times closer to it than the float32 solve, as
+#: tests/test_ns_solver.py:118-141 holds the refined Z: the float32 solve
+#: alone sits inside REFINED_RTOL on these matrices
+REFINED_GAIN = 20
+#: phase 13: the production shape of bench.py:548-717: 450x450x52 points at
+#: 3 km (10,530,000), k=96, 200,000 vr records presorted in Hilbert order of
+#: the blocking's metric (hclr 24 km, vclr 3 km), cap 300, seed 9, in 20
+#: slabs at chunk = subchunk = 2048
+PROD_GRID = (450, 450, 52)
+PROD_DX_M, PROD_DZ_M = 3e3, 400.0
+PROD_K = 96
+PROD_RECORDS = 200_000
+PROD_RADII = (24.0, 3.0)
+PROD_CAP = 300
+PROD_SEED = 9
+PROD_SLABS = 20
+PROD_CHUNK = 2048
+#: the depth cut of phase 13: slabs run until the next would end past this
+#: many seconds of slab runs (at least one slab; the count is printed)
+PROD_BUDGET_S = 60.0
 #: name -> (route, source, the TPU kernel it replaces)
 KERNELS = {
     "ns_invsqrt": ("cuda", "cwbnwp_letkf_torch/csrc/ns_invsqrt.cu",
@@ -811,7 +875,9 @@ def phase_jacobi_cycle(dev, pts_d, xb_d, truth_d, xa_ns, plats):
 
 
 def phase_updates(dev, pts_d, xb_d, xa_jac, dplats, nz):
-    """Phase 8: entries (b) and (c); returns the K4 launch count."""
+    """Phase 8: entries (b) and (c); returns the K4 launch count, the
+    analyses (entry (b)'s, and entry (c)'s by backend) and entry (c)'s
+    41-member case ``(q, xb, truth, device platforms, host platforms)``."""
     from cwbnwp_letkf_torch.ops import eigh_kernel, solver, update
 
     b = pts_d.shape[0]
@@ -838,7 +904,7 @@ def phase_updates(dev, pts_d, xb_d, xa_jac, dplats, nz):
         check(bool(torch.isfinite(xa).all()), "(b): analysis not finite")
         check_close(xa, xa_jac[:, :2], xb_d[:, None, :],
                     "(b) vs the Jacobi cycle's U, V")
-        del xa
+        xa_b = xa
     finally:
         solver.set_eigh_backend("auto")
 
@@ -894,7 +960,8 @@ def phase_updates(dev, pts_d, xb_d, xa_jac, dplats, nz):
           f"(c): first K4 stack {tuple(real.shape)}")
     compare_jacobi(real, f"(c) first chunk, {list(real.shape)}", timed=False,
                    rec_tol=REAL_REC_TOL)
-    return out["jacobi"][1]
+    return (out["jacobi"][1], xa_b, {b: xa for b, (xa, _) in out.items()},
+            (q, xb41, truth41, dplats41, plats))
 
 
 #: phase 9's WRF case: the bench case's 128x128x20 grid at about 10 km
@@ -1616,6 +1683,442 @@ def phase_cli(dev, smi_line, root, launches9, grid=GRID, k=K, chunk=CHUNK):
     return launches, err
 
 
+def gather_entry(entry, q, xb, dplats):
+    """Entry (b), ``update_points_group`` for (U, V) at k=40, or entry (c),
+    ``update_points`` for T at k=41, with ``method="gather"``; returns
+    ``(xa, diagnostics)``."""
+    from cwbnwp_letkf_torch.ops import update
+
+    if entry == "b":
+        return update.update_points_group(
+            xb, q, dplats, (0, 1),
+            inflats=tuple((K - 1) / MULTI_INFL[iv] for iv in (0, 1)),
+            weight_function=0, rtpp_alpha=(RTPP,) * 2, rtps_alpha=(RTPS,) * 2,
+            chunk=CHUNK, method="gather", return_diagnostics=True)
+    return update.update_points(
+        xb, q, dplats, 3, inflat=(K_ODD - 1) / MULTI_INFL[3],
+        weight_function=0, use_rtpp=True, rtpp_alpha=RTPP, use_rtps=True,
+        rtps_alpha=RTPS, chunk=CHUNK, method="gather",
+        return_diagnostics=True)
+
+
+def cap_binding(q, dplats, ivar):
+    """``{platform: points with more in-radius records than its cap}``."""
+    from cwbnwp_letkf_torch.constants import GC1999_SQ
+    from cwbnwp_letkf_torch.ops.neighbors import normalize_coords
+
+    out = {}
+    for dp in dplats:
+        st = dp.static
+        if not st.active(ivar):
+            continue
+        on = normalize_coords(dp.xyz, st.hclr[ivar], st.vclr[ivar])
+        center = on.mean(0, keepdim=True)
+        on = on - center
+        qn = normalize_coords(q, st.hclr[ivar], st.vclr[ivar]) - center
+        osq = (on * on).sum(-1)
+        n = 0
+        for c0 in range(0, q.shape[0], CHUNK):
+            qc = qn[c0:c0 + CHUNK]
+            r2 = (qc * qc).sum(-1, keepdim=True) + osq - 2.0 * (qc @ on.T)
+            n += int(((r2 <= GC1999_SQ).sum(1) > st.max_lz_pts).sum())
+        out[st.name] = n
+    return out
+
+
+def phase_gather(dev, case40, xa_b, xa_c, case41):
+    """Phase 11: entries (b) and (c) with ``method="gather"`` on the full
+    grid, under ``"auto"`` (K1) and ``"jacobi"`` (K3 at k=40, K4 at k=41).
+
+    Per run: the launches (one per chunk, that kernel alone), finite, the
+    analysis-mean RMSE lower; a warm rerun, timed, equal to the first; the
+    card against the same entry on the CPU (the plain versions) on a
+    ``GATHER_SUBSET`` subset within ``XA_RTOL`` of the increment; the gap to
+    phase 8's ``method="auto"`` analysis (printed: gather keeps the
+    ``n_max`` nearest records where the cap binds, dense the records under
+    the multisection's threshold); the kernel against its plain version on
+    the first real batch the entry gave it.  Returns ``({kernel: {key:
+    launches}}, {kernel: max|d| against the plain version})``.
+    """
+    from cwbnwp_letkf_torch.ops import eigh_kernel, ns_kernel, solver, update
+
+    pts_d, xb_d, truth_d, dplats, plats = case40
+    q41, xb41, truth41, dplats41, plats41 = case41
+    b = pts_d.shape[0]
+    n_chunks = -(-b // CHUNK)
+    inputs = {"b": (pts_d, xb_d[:, None, :].expand(b, 2, K), dplats, plats,
+                    truth_d, 0),
+              "c": (q41, xb41, dplats41, plats41, truth41, 3)}
+    refs = {("b", "auto"): xa_b, ("b", "jacobi"): xa_b,
+            ("c", "auto"): xa_c["auto"], ("c", "jacobi"): xa_c["jacobi"]}
+    for entry, (q, _, dpl, _, _, ivar) in inputs.items():
+        print(f"  ({entry}) points whose in-radius records exceed the cap: "
+              f"{cap_binding(q, dpl, ivar)} of {b}")
+    cpu_plats = {}
+    launches, errs = {}, {}
+    for entry, backend, name in GATHER_RUNS:
+        q, xb, dpl, pl, truth, _ = inputs[entry]
+        module = ns_kernel if name == "ns_invsqrt" else eigh_kernel
+        label = f"gather ({entry}) {backend}"
+        solver.set_eigh_backend(backend)
+        try:
+            reset_counts()
+            t0 = time.time()
+            with first_input(module) as firsts:
+                xa, diag = gather_entry(entry, q, xb, dpl)
+            torch.cuda.synchronize(dev)
+            cold_s = time.time() - t0
+            counts = read_counts()
+            check_only(counts, name, n_chunks, f"{label} (one per chunk)")
+            check(bool(torch.isfinite(xa).all()), f"{label}: not finite")
+            check(int(diag["bucket_overflow"]) == 0, f"{label}: overflow")
+            check(float(diag["ns_residual"]) <= NS_TOL,
+                  f"{label}: ns_residual {float(diag['ns_residual'])}")
+            col = xa[:, 0] if entry == "b" else xa
+            rmse_b, rmse_a = rmse(xb_d.mean(-1) if entry == "b"
+                                  else xb.mean(-1), truth), rmse(
+                col.mean(-1), truth)
+            print(f"  {label}: first run {cold_s:.3f} s; "
+                  f"{'U' if entry == 'b' else 'T'} mean RMSE background "
+                  f"{rmse_b:.4f} -> analysis {rmse_a:.4f}")
+            check(rmse_a < rmse_b, f"{label}: analysis RMSE not lower")
+            t0 = time.time()
+            with timed_launches(module) as events:
+                xa_w, _ = gather_entry(entry, q, xb, dpl)
+            torch.cuda.synchronize(dev)
+            wall = time.time() - t0
+            check(torch.equal(xa_w, xa), f"{label}: warm run differs")
+            del xa_w
+            print(f"  {label}: warm run {wall:.3f} s, "
+                  f"{b * (2 if entry == 'b' else 1) / wall:.1f} var-point "
+                  f"updates/s; {name} {launch_seconds(events):.4f} s on the "
+                  f"card in {len(events)} launches (CUDA events around each)")
+            if entry not in cpu_plats:
+                cpu_plats[entry] = [update.prepare_platform(st, po,
+                                                            device="cpu")
+                                    for st, po in pl]
+            n_sub = GATHER_SUBSET[backend]
+            rows = torch.arange(0, b, b // n_sub, device=dev)[:n_sub]
+            t0 = time.time()
+            xa_cpu, _ = gather_entry(entry, q[rows].cpu(), xb[rows].cpu(),
+                                     cpu_plats[entry])
+            check_close(xa[rows].cpu(), xa_cpu, xb[rows].cpu(),
+                        f"{label}: card vs CPU on {n_sub} points "
+                        f"({time.time() - t0:.1f} s on the CPU)")
+            ref = refs[(entry, backend)]
+            gap = float((xa - ref).abs().max())
+            incr = float((ref - (xb_d[:, None, :] if entry == "b"
+                                 else xb)).abs().max())
+            print(f"  {label}: gap to method='auto' (phase 8, "
+                  f"{'jacobi' if entry == 'b' else backend}) max|dxa| "
+                  f"{gap:.3e} = {gap / incr:.3e} of its increment")
+            del xa
+            stack, args = firsts[0]
+            if module is ns_kernel:
+                err = compare_kernel(stack, args[0], f"{label} first chunk "
+                                     f"{list(stack.shape)}")
+            else:
+                err, _ = compare_jacobi(stack, f"{label} first chunk "
+                                        f"{list(stack.shape)}", timed=False,
+                                        rec_tol=REAL_REC_TOL)
+            del stack, firsts
+        finally:
+            solver.set_eigh_backend("auto")
+        key = "launches_gather_group" if entry == "b" else \
+            "launches_gather_update"
+        launches.setdefault(name, {})[key] = counts[name]
+        errs[name] = max(errs.get(name, 0.0), err)
+    return launches, errs
+
+
+def phase_refined(a_obs, g, xb, has, label):
+    """Phase 12: ``letkf_solve_group_refined`` on real normal matrices
+    ``a_obs [B, k, k]`` (float32), ``g``, ``xb [B, k]`` and ``has``, two
+    variables at ``REFINED_INFL``, against the float64 solve within
+    ``REFINED_RTOL`` of the analysis scale and ``REFINED_GAIN`` times closer
+    to it than the float32 solve; K1 launched once per inflation value; points/s of the three
+    solves.  Returns the K1 launches."""
+    from cwbnwp_letkf_torch.ops import solver
+
+    b, k = xb.shape
+    f64 = torch.float64
+    inflats = tuple((k - 1) / r for r in REFINED_INFL)
+    kw = dict(rtpp_alpha=(RTPP,) * 2, rtps_alpha=(RTPS,) * 2)
+    a64, g64 = a_obs.to(f64), g.to(f64)
+    xb64 = xb.to(f64)[:, None, :].expand(b, 2, k).contiguous()
+    xb32 = xb64.float()
+
+    def refined():
+        return solver.letkf_solve_group_refined(a64, g64, xb64, inflats, has,
+                                                return_diagnostics=True, **kw)
+
+    def solve(a, gg, x, dtype):
+        return solver.letkf_solve_group_from_normal(a, gg, x, inflats, has,
+                                                    solver_dtype=dtype, **kw)
+
+    reset_counts()
+    xa_r, diag = refined()
+    counts = read_counts()
+    check_only(counts, "ns_invsqrt", len(set(inflats)),
+               f"{label}: refined solve (one K1 per inflation value)")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    xa_64 = solve(a64, g64, xb64, f64)
+    torch.cuda.synchronize()
+    f64_s = time.time() - t0
+    xa_32 = solve(a_obs, g, xb32, torch.float32)
+    scale = float(xa_64.abs().max())
+    incr = float((xa_64 - xb64).abs().max())
+    err_r = float((xa_r - xa_64).abs().max())
+    err_32 = float((xa_32.to(f64) - xa_64).abs().max())
+    ms_r = median_ms(refined)
+    ms_32 = median_ms(lambda: solve(a_obs, g, xb32, torch.float32))
+    print(f"  {label}: [{b},{k},{k}], {int(has.sum())} with obs, NS residual "
+          f"{float(diag['ns_residual']):.3e}; max|xa - xa_f64| refined "
+          f"{err_r:.3e} = {err_r / scale:.3e} of the analysis scale "
+          f"{scale:.3f} (tol {REFINED_RTOL:.0e}; {err_r / incr:.3e} of the "
+          f"increment), float32 {err_32:.3e} = {err_32 / scale:.3e}")
+    print(f"  {label}: points/s refined {b / ms_r * 1e3:.1f} ({ms_r:.4f} ms, "
+          f"median of 5), float32 {b / ms_32 * 1e3:.1f} ({ms_32:.4f} ms), "
+          f"float64 {b / f64_s:.1f} ({f64_s * 1e3:.1f} ms, one run)")
+    check(err_r <= REFINED_RTOL * scale,
+          f"{label}: refined solve off float64 by {err_r}")
+    check(err_r <= err_32 / REFINED_GAIN,
+          f"{label}: refined solve {err_r} not {REFINED_GAIN}x closer to "
+          f"float64 than the float32 solve's {err_32}")
+    return counts["ns_invsqrt"]
+
+
+def prod_case(dev):
+    """Phase 13's case on the card: ``(points, xb [B, 96], platform)``."""
+    from cwbnwp_letkf_torch.config import MAX_VARS
+    from cwbnwp_letkf_torch.obs.base import PlatformObs, PlatformStatic
+    from cwbnwp_letkf_torch.obs.synthetic import idealized_grid
+    from cwbnwp_letkf_torch.ops.bucketed import hilbert3
+    from cwbnwp_letkf_torch.ops.neighbors import normalize_coords
+    from cwbnwp_letkf_torch.ops.update import prepare_platform
+
+    rng = np.random.default_rng(PROD_SEED)
+    pts = idealized_grid(*PROD_GRID, dx_m=PROD_DX_M, dz_m=PROD_DZ_M)
+    b, r = pts.shape[0], PROD_RECORDS
+    gi = rng.integers(0, b, r)
+    oxyz = (pts[gi] + rng.normal(0, 500.0, (r, 3))).astype(np.float32)
+    noise = rng.normal(0, 1.0, r).astype(np.float32)
+    pts_d = torch.from_numpy(pts).to(dev)
+    truth = 290.0 + 5.0 * torch.exp(-(pts_d[:, 0] ** 2 + pts_d[:, 1] ** 2)
+                                    / 4e5 ** 2)
+    gen = torch.Generator(device=dev).manual_seed(PROD_SEED)
+    xb = truth[:, None] - 2.0 + torch.randn((b, PROD_K), generator=gen,
+                                            device=dev)
+    gi_d = torch.from_numpy(gi).to(dev)
+    oxyz_d = torch.from_numpy(oxyz).to(dev)
+    # presorted in the blocking's metric (one group: its own radii)
+    order = torch.argsort(hilbert3(normalize_coords(oxyz_d, *PROD_RADII)),
+                          stable=True)
+    gi_d = gi_d[order]
+    po = PlatformObs(
+        xyz=oxyz_d[order],
+        obs=(truth[gi_d] + torch.from_numpy(noise).to(dev)[order])[None],
+        error=torch.ones((1, r), device=dev),
+        qc=torch.zeros((1, r, PROD_K), device=dev), hdxb=xb[gi_d][None])
+    st = PlatformStatic(
+        name="vr", kind="radar", nvar=1, max_lz_pts=PROD_CAP,
+        hclr=(PROD_RADII[0],) * MAX_VARS, vclr=(PROD_RADII[1],) * MAX_VARS,
+        err_muti=(1.0,), err_rej=(5.0,), is_assim=((True,) * MAX_VARS,))
+    return pts_d, xb, prepare_platform(st, po, device=dev)
+
+
+def phase_prod(dev, smi_line):
+    """Phase 13: the production shape; phase 12 on its first k=96 chunk.
+
+    Returns the K1 launches of the slabs run and K1's ``max|dZ|`` against
+    its plain version on the first real ``[2048, 96, 96]`` batch, and the
+    refined solve's K1 launches."""
+    from cwbnwp_letkf_torch.ops import cycle, ns_kernel
+
+    t0 = time.time()
+    pts_d, xb, dp = prod_case(dev)
+    torch.cuda.synchronize(dev)
+    b = pts_d.shape[0]
+    slab = -(-b // PROD_SLABS)
+    groups = (cycle.CycleGroup(ivars=(0,), inflats=((PROD_K - 1) / 1.1,),
+                               rtpp_alpha=(RTPP,), rtps_alpha=(RTPS,)),)
+    print(f"  case: {b} points ({'x'.join(map(str, PROD_GRID))} at "
+          f"{PROD_DX_M / 1e3:g} km), k={PROD_K}, {PROD_RECORDS} vr records "
+          f"presorted, cap {PROD_CAP}, {PROD_SLABS} slabs of {slab}; built "
+          f"in {time.time() - t0:.2f} s, device memory "
+          f"{torch.cuda.memory_allocated(dev) / 2**30:.3f} GiB")
+
+    def plan(si, presorted=True):
+        return cycle.plan_cycle_budgets(
+            pts_d[si * slab:(si + 1) * slab], [dp], groups, chunk=PROD_CHUNK,
+            subchunk=PROD_CHUNK, obs_presorted=presorted)
+
+    def run(si, budgets, presorted=True):
+        rows = slice(si * slab, (si + 1) * slab)
+        return cycle.update_points_cycle(
+            xb[rows, None, :], pts_d[rows], [dp], groups, weight_function=0,
+            chunk=PROD_CHUNK, subchunk=PROD_CHUNK, max_blocks=budgets,
+            obs_presorted=presorted, return_diagnostics=True)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.time()
+    budgets0 = plan(0)
+    torch.cuda.synchronize(dev)
+    blockings = [v for v in dp.cache.values()
+                 if isinstance(v, cycle.CycleBlocking)]
+    print(f"  plan (slab 1, geometry only): {time.time() - t0:.3f} s, budgets "
+          f"{ {n: tuple(bb) for n, bb in budgets0.items()} }, device memory "
+          f"{torch.cuda.memory_allocated(dev) / 2**30:.3f} GiB")
+    check(blockings and all(not cb.fused_by_mask for cb in blockings),
+          "planning built a table")
+
+    reset_counts()
+    runs, k1_s, expected, ovf, resid = [], 0.0, 0, 0, 0.0
+    loop_t0 = time.time()
+    for si in range(PROD_SLABS):
+        budgets = budgets0 if si == 0 else plan(si)
+        n = min(b, (si + 1) * slab) - si * slab
+        t0 = time.time()
+        with first_input(ns_kernel) as firsts, \
+                timed_launches(ns_kernel) as events:
+            xa, diag = run(si, budgets)
+        torch.cuda.synchronize(dev)
+        runs.append(time.time() - t0)
+        k1_s += launch_seconds(events)
+        expected += -(-n // PROD_CHUNK)
+        ovf += int(diag["bucket_overflow"])
+        resid = max(resid, float(diag["ns_residual"]))
+        check(bool(torch.isfinite(xa).all()), f"slab {si + 1}: not finite")
+        if si == 0:
+            xa0, first = xa, firsts[0]
+        del xa, firsts
+        print(f"  slab {si + 1}: {runs[-1]:.3f} s, {n / runs[-1]:.1f} "
+              f"var-point updates/s")
+        spent = time.time() - loop_t0
+        if spent + spent / (si + 1) > PROD_BUDGET_S:
+            break
+    done = len(runs)
+    counts = read_counts()
+    check(ovf == 0, f"production shape: overflow {ovf}")
+    check(resid <= NS_TOL, f"production shape: ns_residual {resid}")
+    check_only(counts, "ns_invsqrt", expected,
+               f"production shape, {done} slab(s) (one per chunk)")
+    steady = runs[1:] or runs
+    per_slab = sum(steady) / len(steady)
+    print(f"  {smi_line}: {done} of {PROD_SLABS} slabs run (the depth cut: "
+          f"{PROD_BUDGET_S:g} s of slab runs); slab seconds "
+          f"{[round(t, 3) for t in runs]} (the first builds the "
+          f"{PROD_RECORDS} x {PROD_K * (PROD_K + 1)} table); "
+          f"{slab / per_slab:.1f} var-point updates/s a slab after the first;"
+          f" K1 {k1_s:.4f} s in {counts['ns_invsqrt']} launches (CUDA events "
+          f"around each); peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB; projected"
+          f" 20 slabs {runs[0] + (PROD_SLABS - 1) * per_slab:.1f} s")
+    stack, (inflat,) = first
+    check(tuple(stack.shape) == (PROD_CHUNK, PROD_K, PROD_K),
+          f"first K1 batch {tuple(stack.shape)}")
+    steps = float(ns_kernel.launch(stack, inflat)[1].float().mean())
+    print(f"  K1 mean steps on the first batch: {steps:.3f}")
+    err = compare_kernel(stack, inflat, f"production first chunk "
+                         f"{list(stack.shape)}, inflat {inflat:.4f}")
+
+    print("phase 12 (k=96): the refined solves on the first production chunk")
+    plans = cycle._resolve_plans([dp], groups, max_blocks=budgets0,
+                                 obs_presorted=True)
+    rows = cycle._cycle_point_perm(pts_d[:slab], plans)[:PROD_CHUNK]
+    a, g, cnt, _ = cycle.accumulate_chunk(
+        pts_d[rows], plans, groups, k=PROD_K, weight_function=0,
+        subchunk=PROD_CHUNK)
+    del plans
+    check(torch.equal(a[0], stack), "the first chunk's normal matrices are "
+                                    "not the first K1 batch")
+    launches12 = phase_refined(a[0], g[0], xb[rows], cnt[0] > 0,
+                               "production first chunk, k=96")
+    del a, g, stack, first
+
+    dp.cache.clear()          # one 7.45 GB table at a time
+    t0 = time.time()
+    budgets_s = plan(0, presorted=False)
+    check(budgets_s == budgets0, f"sorted budgets {budgets_s} != {budgets0}")
+    xa_s, _ = run(0, budgets_s, presorted=False)
+    torch.cuda.synchronize(dev)
+    check(torch.equal(xa_s, xa0), "slab 1: obs_presorted=False differs from "
+                                  "the presorted run")
+    print(f"  slab 1 with obs_presorted=False (sorts the records, builds "
+          f"its own table): {time.time() - t0:.3f} s, equal bit for bit")
+    dp.cache.clear()
+    return counts["ns_invsqrt"], err, launches12
+
+
+def phase_breakdown(dev, pts_d, xb_d, dplats, root):
+    """Phase 14: the eigen factors under ``"auto"`` on a seeded
+    ``[4096, 40, 40]`` batch (K3 once, no library call; timed beside
+    ``torch.linalg.eigh`` on the same matrices, the call they took before
+    K3 did under ``"auto"``), then ``profiling.device_breakdown`` on the
+    bench case, whose ``eigh`` stage they are, and the CLI's
+    ``--device-breakdown``; returns the K3 launches of the breakdown."""
+    from cwbnwp_letkf_torch import profiling
+    from cwbnwp_letkf_torch.ops import solver
+    from cwbnwp_letkf_torch.synthetic_case import generate_case
+
+    rng = np.random.default_rng(SEED + 14)
+    a = normal_matrices(rng, CHUNK, K, dev)
+    g = torch.from_numpy(rng.standard_normal((CHUNK, K)).astype(np.float32)
+                         ).to(dev)
+    inflat = (K - 1) / MULTI_INFL[0]
+    reset_counts()
+    lam, v, _ = solver.letkf_weight_factors_from_normal(a, g, inflat)
+    check_only(read_counts(), "jacobi_parallel", 1,
+               f"letkf_weight_factors_from_normal, [{CHUNK},{K},{K}], auto")
+    a_full = a + inflat * torch.eye(K, device=dev)
+    rec = reconstruction(lam, v, a_full)
+    ms = median_ms(lambda: solver.letkf_weight_factors_from_normal(
+        a, g, inflat))
+    lib_ms, lib_b = library_eigh_ms(a_full)
+    print(f"  eigen factors under 'auto': {ms:.4f} ms (K3 and the polish, "
+          f"median of 5), reconstruction {rec:.3e} max|A|; "
+          f"torch.linalg.eigh on the same matrices {lib_ms:.4f} ms at batch "
+          f"{lib_b} of {CHUNK} ({lib_ms * CHUNK / lib_b:.1f} ms if it scales)")
+    check(rec <= REAL_REC_TOL, f"eigen factors: reconstruction {rec}")
+    del a, g, a_full, lam, v
+
+    reps = 3
+    stages = ("localize_accumulate", "eigh", "weight_apply")
+    reset_counts()
+    out = profiling.device_breakdown(xb_d, pts_d, dplats, 0,
+                                     weight_function=0,
+                                     inflat=(K - 1) / MULTI_INFL[0],
+                                     sample=CHUNK, reps=reps)
+    counts = read_counts()
+    check_only(counts, "jacobi_parallel", reps + 1,
+               "device_breakdown (K3 in the eigh stage: a warm call and "
+               f"{reps} timed)")
+    print(f"  device_breakdown, bench case, {out['points']} points: "
+          + ", ".join(f"{s} {out[s + '_s'] * 1e3:.3f} ms "
+                      f"({out[s + '_frac']:.3f})" for s in stages)
+          + f"; total {out['total_s'] * 1e3:.3f} ms")
+    check(out["points"] == CHUNK, f"breakdown points {out['points']}")
+    check(all(out[s + "_s"] > 0 for s in stages), "a stage took no time")
+    check(abs(sum(out[s + "_s"] for s in stages) - out["total_s"]) <= 1e-12
+          and abs(sum(out[s + "_frac"] for s in stages) - 1.0) <= 1e-9,
+          "stages not additive")
+    d = root / "breakdown"
+    generate_case(str(d / "in"))
+    reset_counts()
+    run_cli("--input", d / "in", "--output", d / "out", "--quiet",
+            "--device-breakdown", "--metrics-json", d / "m.json")
+    cli_counts = read_counts()
+    bd = json.loads((d / "m.json").read_text()).get("device_breakdown")
+    print(f"  cli.main --device-breakdown (generate_case): kernel launches "
+          f"{cli_counts}; device_breakdown {bd}")
+    check(bd is not None and set(bd) == set(out),
+          f"--metrics-json device_breakdown: {bd}")
+    check(cli_counts["jacobi_parallel"] == reps + 1,
+          f"CLI breakdown: K3 launches {cli_counts}")
+    return counts["jacobi_parallel"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1669,7 +2172,6 @@ def main():
         entry["max_abs_err"] = max(entry["max_abs_err"], err4)
         record["ns_invsqrt"] = {"launches": launches, **entry}
         phase_eigh_control(first, xb_d, groups)
-        del first
 
         print("phase 5: K2")
         record["ns_invsqrt_rmul"] = phase_rmul(dev, stacks)
@@ -1686,7 +2188,9 @@ def main():
                                      **jac["jacobi_parallel"]}
 
         print("phase 8: entries (b) and (c)")
-        launches4 = phase_updates(dev, pts_d, xb_d, xa_jac, dplats, GRID[2])
+        launches4, xa_b, xa_c, case41 = phase_updates(dev, pts_d, xb_d,
+                                                      xa_jac, dplats, GRID[2])
+        del xa_jac
         record["jacobi_cyclic"] = {"launches": launches4,
                                    **jac["jacobi_cyclic"]}
 
@@ -1708,6 +2212,37 @@ def main():
             record["ns_invsqrt"]["max_abs_err"] = max(
                 record["ns_invsqrt"]["max_abs_err"], err10)
             print(f"  (b) in {time.time() - t0:.1f} s")
+
+        print("phase 11: the gather path at full width")
+        t0 = time.time()
+        launches11, errs11 = phase_gather(
+            dev, (pts_d, xb_d, truth_d, dplats, case[3]), xa_b, xa_c, case41)
+        del xa_b, xa_c, case41
+        for name, keys in launches11.items():
+            record[name].update(keys)
+            record[name]["max_abs_err"] = max(record[name]["max_abs_err"],
+                                              errs11[name])
+        print(f"  in {time.time() - t0:.1f} s")
+
+        print("phase 12: the refined solves on phase 4's first chunk")
+        rows, a, g, cnt = first
+        record["ns_invsqrt"]["launches_refined"] = phase_refined(
+            a[0], g[0], xb_d[rows], cnt[0] > 0, "bench first chunk, k=40")
+        del first, a, g, cnt
+
+        print("phase 13: the production shape")
+        t0 = time.time()
+        launches13, err13, launches12 = phase_prod(dev, smi_line)
+        record["ns_invsqrt"]["launches_prod_shape"] = launches13
+        record["ns_invsqrt"]["launches_refined"] += launches12
+        record["ns_invsqrt"]["max_abs_err"] = max(
+            record["ns_invsqrt"]["max_abs_err"], err13)
+        print(f"  in {time.time() - t0:.1f} s")
+
+        print("phase 14: the device-time breakdown")
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_bd_") as tmp:
+            record["jacobi_parallel"]["launches_breakdown"] = \
+                phase_breakdown(dev, pts_d, xb_d, dplats, Path(tmp))
     print(f"all phases passed in {time.time() - t_start:.1f} s")
 
     kernels = []

@@ -24,8 +24,9 @@ The analysis runs on the CUDA card.  ``--platform cpu`` runs it on the CPU
 through the kernels' plain versions, which is for tests; without a card and
 without ``--platform cpu`` the CLI raises before it reads any file.  The
 multi-device update (``--distributed``, or more than one visible card without
-``--no-mesh``) is ROADMAP M11 and the device-time breakdown
-(``--device-breakdown``) is M12: both raise.
+``--no-mesh``) is ROADMAP M11 and raises.  ``--device-breakdown`` adds the
+per-stage device seconds of a sample batch to the run metrics
+(``device_breakdown`` in ``--metrics-json``).
 """
 from __future__ import annotations
 
@@ -79,8 +80,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="write a torch.profiler trace of the update into "
                         "this directory (a Chrome trace: Perfetto)")
     p.add_argument("--device-breakdown", action="store_true",
-                   help="per-stage device time on a sample batch (not "
-                        "ported yet: ROADMAP M12)")
+                   help="per-stage device time on a sample batch "
+                        "(metrics key device_breakdown)")
     return p
 
 
@@ -91,9 +92,6 @@ def select_device(args: argparse.Namespace) -> torch.device:
     if args.distributed:
         raise ValueError("--distributed is the multi-host update, which is "
                          "not ported yet: ROADMAP M11")
-    if args.device_breakdown:
-        raise ValueError("--device-breakdown (profiling.device_breakdown) "
-                         "is not ported yet: ROADMAP M12")
     if args.platform == "cpu":
         return torch.device("cpu")
     if args.platform is not None and args.platform not in CUDA_PLATFORMS:
@@ -172,7 +170,8 @@ def main(argv=None) -> int:
     timer.stamp("get into letkf core")
     with maybe_trace(args.profile_dir):
         run_analysis(cfg, ens, obs_data, chunk=args.chunk, timer=timer,
-                     metrics=metrics, device=device)
+                     metrics=metrics, device_breakdown=args.device_breakdown,
+                     device=device)
     timer.stamp("finish letkf core")
 
     os.makedirs(args.output, exist_ok=True)

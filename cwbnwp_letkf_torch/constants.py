@@ -1,4 +1,4 @@
-"""Constants the ported modules read (module_param.f90)."""
+"""Constants of the reference (module_param.f90)."""
 import enum
 import math
 
@@ -90,14 +90,57 @@ GTS_NAMES = {
 }
 
 
+class RadarType(enum.IntEnum):
+    """Radar retrieval types (module_param.f90:93-100)."""
+
+    DBZ = 1  # reflectivity ("MR" files)
+    VR = 2   # radial velocity ("VR" files)
+    ZDR = 3  # differential reflectivity ("MD" files)
+    KDP = 4  # specific differential phase ("MK" files)
+
+
+NUM_RADAR_INDEXES = 4
+RADAR_NAMES = {RadarType.DBZ: "MR", RadarType.VR: "VR",
+               RadarType.ZDR: "ZDR", RadarType.KDP: "KDP"}
+
+# Observed quantities per GTS platform family
+# (module_gts_omboma.f90:101-500 allocation shapes).
+GTS_NVAR = {
+    GtsType.SYNOP: 5, GtsType.SHIPS: 5, GtsType.BUOY: 5, GtsType.METAR: 5,
+    GtsType.SONDE_SFC: 5, GtsType.TAMDAR_SFC: 5,       # u, v, t, p, q
+    GtsType.PILOT: 2, GtsType.PROFILER: 2, GtsType.GEOAMV: 2,
+    GtsType.QSCAT: 2, GtsType.POLARAMV: 2,             # u, v
+    GtsType.GPSPW: 1,                                  # tpw
+    GtsType.SOUND: 4, GtsType.TAMDAR: 4, GtsType.AIREP: 4,  # u, v, t, q
+    GtsType.GPSREF: 1,                                 # refractivity
+}
+
+# Observed-variable names per platform family, in file/column order
+# (letkf_yoyb's is_assim/err tables, module_letkf_core.f90:349-418).
+GTS_VAR_NAMES = {
+    5: ("u", "v", "t", "p", "q"),
+    4: ("u", "v", "t", "q"),
+    2: ("u", "v"),
+}
+
+# The GTS platforms the solver assimilates (module_letkf_core.f90:338-418,
+# the build_tree platform switch of localization.f90:59-72).
+ASSIMILABLE_GTS = (GtsType.SYNOP, GtsType.METAR, GtsType.SHIPS,
+                   GtsType.SOUND, GtsType.GPSPW)
+
+
 # Physical constants (module_param.f90:105-116)
-D2R = math.pi / 180.0
+PI = math.pi
+D2R = PI / 180.0
+R2D = 180.0 / PI
 EARTH_RADIUS = 6.37122e6
 GRAVITY = 9.81
 P1000MB = 100000.0
+T0 = 300.0
 R_D = 287.0
 CP = 7.0 * R_D * 0.5
-CVPM = -(CP - R_D) / CP
+CV = CP - R_D
+CVPM = -CV / CP
 #: Gaspari-Cohn (1999) compact-support radius in localization-normalized
 #: coordinates: 2*sqrt(10/3)  (module_param.f90:116).
 GC1999 = 2.0 * math.sqrt(10.0 / 3.0)

@@ -10,8 +10,7 @@ prepared once per cycle, since they do not depend on the variable.
 
 The analysis runs on ``device``, the card unless the caller asks for the
 CPU; the ensemble and its files stay on the host.  The multi-device update
-(``mesh``, ``distributed``, ROADMAP M11) and the device-time breakdown
-(``device_breakdown``, ROADMAP M12) are not ported yet and raise.
+(``mesh``, ``distributed``, ROADMAP M11) is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -28,14 +27,11 @@ from .models.variables import VAR_TABLE
 from .models.vcoord import analysis_points, mean_geopotential_height
 from .obs.base import PlatformObs, platform_statics_from_config
 from .ops.cycle import CycleGroup, plan_cycle_budgets, update_points_cycle
+from .ops.dense import set_accum_precision
 from .ops.solver import tune_q
 from .ops.update import DevicePlatform, prepare_platform, update_points
+from .profiling import device_breakdown as _breakdown
 from .projection import LambertProjection
-
-#: ``cfg.accum_precision`` names of the JAX package (bf16_3x and full
-#: float32 there).  The port accumulates in full float32 under both: TF32 is
-#: off (:mod:`.device`) and CUDA cores have no bf16_3x.
-ACCUM_PRECISIONS = ("high", "highest")
 
 
 class StageTimer:
@@ -154,18 +150,16 @@ def run_analysis(
 
     Runs on ``device`` (the card by default; the CPU only when asked).  A
     float32 solve of more than 96 members on a card is refused by the
-    update functions (``solver.check_ensemble_size``).
+    update functions (``solver.check_ensemble_size``).  With
+    ``device_breakdown`` the fused branch ends with
+    :func:`.profiling.device_breakdown` on a sample of the first group's
+    points (their analysis), into ``metrics.device_breakdown``.
     """
     if mesh is not None or distributed:
         raise ValueError("mesh / distributed=True is the multi-device update, "
                          "which is not ported yet: ROADMAP M11")
-    if device_breakdown:
-        raise ValueError("device_breakdown=True (profiling.device_breakdown) "
-                         "is not ported yet: ROADMAP M12")
-    if cfg.accum_precision not in ACCUM_PRECISIONS:
-        raise ValueError(f"accum_precision must be one of "
-                         f"{sorted(ACCUM_PRECISIONS)}, got "
-                         f"{cfg.accum_precision!r}")
+    # the names only: both accumulate in full float32 on the port
+    set_accum_precision(cfg.accum_precision)
     device = torch.device(device)
     timer = timer or StageTimer(enabled=False)
     metrics = metrics if metrics is not None else RunMetrics()
@@ -306,4 +300,19 @@ def run_analysis(
     ens.finish()
     _sync(device)
     metrics.stage("update")
+
+    if device_breakdown:
+        # per-stage device time on a sample of the first group's points;
+        # the reference has whole-stage wall clocks only (mpi_util.f90:66-71)
+        groups = _group_variables(cfg, platforms)
+        if groups:
+            ivar0, _, spec0 = groups[0][1][0]
+            pts, (ux, uy, uz) = points_for(spec0)
+            xb = ens.load_group([spec0], ux, uy, uz)[:, 0, :]
+            metrics.device_breakdown = _breakdown(
+                torch.from_numpy(xb).to(device),
+                torch.from_numpy(pts).to(device), platforms, ivar0,
+                weight_function=cfg.weight_function,
+                inflat=(k_ens - 1) / infl.multi_infl[ivar0])
+            metrics.stage("device_breakdown")
     return ens

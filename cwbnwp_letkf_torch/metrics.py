@@ -14,7 +14,7 @@ from __future__ import annotations
 import json
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 
 
@@ -62,6 +62,8 @@ class RunMetrics:
     stages: Dict[str, float] = field(default_factory=dict)
     platforms: List[PlatformMetrics] = field(default_factory=list)
     groups: List[GroupMetrics] = field(default_factory=list)
+    #: per-stage device seconds on a sample (profiling.device_breakdown)
+    device_breakdown: Optional[Dict[str, float]] = None
     _t0: float = field(default_factory=time.time)
     _last: float = field(default_factory=time.time)
 
@@ -128,6 +130,10 @@ class RunMetrics:
                 self.total_var_points / self.update_wall_s, 1)
             if self.update_wall_s else 0.0,
         }
+        if self.device_breakdown is not None:
+            out["device_breakdown"] = {
+                k: round(float(v), 6) for k, v in self.device_breakdown.items()
+            }
         return out
 
     def to_json(self) -> str:

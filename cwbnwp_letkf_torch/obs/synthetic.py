@@ -89,3 +89,14 @@ def synthetic_gts_platform(
         err_muti=tuple([1.0] * nvar), err_rej=tuple([5.0] * nvar),
         is_assim=tuple(tuple([True] * MAX_VARS) for _ in range(nvar)))
     return st, po
+
+
+def toy_case(seed: int = 0, *, k: int = 20, nx: int = 50, ny: int = 50,
+             nz: int = 30, nobs: int = 300):
+    """A 20-member 50x50x30 idealized case with one synop platform:
+    ``(pts, truth, xb, [(static, obs)])``."""
+    rng = np.random.default_rng(seed)
+    pts = idealized_grid(nx, ny, nz)
+    truth, xb = correlated_ensemble(rng, pts, k)
+    st, po = synthetic_gts_platform(rng, pts, truth, xb, nobs=nobs)
+    return pts, truth, xb, [(st, po)]

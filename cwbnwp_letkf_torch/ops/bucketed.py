@@ -178,7 +178,8 @@ class BucketedPlatform(NamedTuple):
 class HilbertBlocks(NamedTuple):
     """Records in Hilbert order, cut into blocks of S (NB = blocks).
 
-      order:    [R]        record order, Hilbert keys of the blocking coords
+      order:    [R]        record order, Hilbert keys of the blocking coords;
+                           None where the records came presorted
       pad:      int        records of padding after the last real one
       obs_s:    [NB*S, 3]  the blocking coords in that order; padding repeats
                            the last real record
@@ -200,17 +201,24 @@ def pad_last(x: torch.Tensor, pad: int) -> torch.Tensor:
     return torch.cat([x, x[-1:].expand(pad, *x.shape[1:])]) if pad else x
 
 
-def hilbert_blocks(obs: torch.Tensor, block_size: int) -> HilbertBlocks:
+def hilbert_blocks(obs: torch.Tensor, block_size: int, *,
+                   presorted: bool = False) -> HilbertBlocks:
     """Hilbert-sort records by ``obs`` ``[R, 3]`` and cut them into blocks
-    with per-block centers and covering radii, in ``obs``' metric."""
+    with per-block centers and covering radii, in ``obs``' metric.
+
+    ``presorted=True`` takes the records in the order given (``order`` is
+    None): the caller has sorted them by ``hilbert3`` of these coordinates,
+    and no reordered copy is made.  Any order is valid; one far from
+    Hilbert order only culls worse.
+    """
     r = obs.shape[0]
     if r == 0:
         raise ValueError("cannot block an empty platform")
     s = block_size
     nb = -(-r // s)
     pad = nb * s - r
-    order = torch.argsort(hilbert3(obs), stable=True)
-    obs_s = pad_last(obs[order], pad)
+    order = None if presorted else torch.argsort(hilbert3(obs), stable=True)
+    obs_s = pad_last(obs if presorted else obs[order], pad)
     mask_b = (torch.arange(nb * s, device=obs.device) < r).view(nb, s)
     obs_b = obs_s.view(nb, s, 3)
     n_real = mask_b.sum(1, keepdim=True).clamp_min(1)

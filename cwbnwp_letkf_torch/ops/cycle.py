@@ -21,7 +21,10 @@ the k-by-k solves run per outer chunk (default 4096), where the batched
 Newton-Schulz solve is efficient.  The chunk loops are eager Python loops.
 The tables, the accumulation and the solve run in ``solver_dtype``; float32
 (the default) takes the Newton-Schulz kernel on a card, float64 the float64
-eigendecomposition.
+eigendecomposition.  ``method`` forces every platform's kind ("dense" or
+"bucketed"); "gather" has no fused form (the JAX cycle takes it and fails in
+its first chunk) and is refused: the gather path runs through
+:func:`.update.update_points` and :func:`.update.update_points_group`.
 """
 from __future__ import annotations
 
@@ -81,6 +84,26 @@ class CycleBlocking(NamedTuple):
         return self.rec_mask.shape[1]
 
 
+#: the accumulation methods of the cycle: "auto" (bucketed from
+#: BUCKET_MIN_RECORDS records, else dense) or one kind for every platform
+CYCLE_METHODS = ("auto", "dense", "bucketed")
+
+#: the point orders of the cycle (:func:`_cycle_point_perm`)
+CYCLE_POINT_ORDERS = ("auto", "morton", "linear")
+
+
+def _check_cycle_options(method: str, point_order: str) -> None:
+    if point_order not in CYCLE_POINT_ORDERS:
+        raise ValueError(f"point_order must be one of {CYCLE_POINT_ORDERS}")
+    if method == "gather":
+        raise ValueError(
+            "method='gather' has no fused cycle (a gather platform has no "
+            "table to share across groups): use update_points(method="
+            "'gather') or update_points_group(method='gather')")
+    if method not in CYCLE_METHODS:
+        raise ValueError(f"method must be one of {CYCLE_METHODS}")
+
+
 class PlatformPlan(NamedTuple):
     """One platform's resolved role in a cycle call."""
 
@@ -108,14 +131,18 @@ def _wide_metric(st, groups, clients) -> Tuple[float, float]:
 
 
 def _cycle_blocking(dp, masks, wide_h, wide_v, block_size, dtype,
+                    presorted: bool = False,
                     geometry_only: bool = False) -> CycleBlocking:
     """Hilbert-block the records in the wide metric, raw coords retained.
 
     The reorder and padding act on the small per-record statistics before
     the table build (:func:`.dense.fused_platform_table`), so the peak memory
-    is one table, in ``dtype``.  ``geometry_only`` skips the tables.
+    is one table, in ``dtype``.  ``presorted`` takes the records in the
+    given order (:func:`.bucketed.hilbert_blocks`): no sort and no
+    reordered copy.  ``geometry_only`` skips the tables.
     """
-    hb = hilbert_blocks(normalize_coords(dp.xyz, wide_h, wide_v), block_size)
+    hb = hilbert_blocks(normalize_coords(dp.xyz, wide_h, wide_v), block_size,
+                        presorted=presorted)
     nb, s = hb.rec_mask.shape
     fused_by_mask: Tuple[torch.Tensor, ...] = ()
     nvalid_by_mask: Tuple[torch.Tensor, ...] = ()
@@ -125,7 +152,8 @@ def _cycle_blocking(dp, masks, wide_h, wide_v, block_size, dtype,
                  for m in masks]
         fused_by_mask = tuple(f.view(nb, s, -1) for f, _ in pairs)
         nvalid_by_mask = tuple(nv.view(nb, s) for _, nv in pairs)
-    return CycleBlocking(xyz_raw=pad_last(dp.xyz[hb.order], hb.pad),
+    xyz = dp.xyz if hb.order is None else dp.xyz[hb.order]
+    return CycleBlocking(xyz_raw=pad_last(xyz, hb.pad),
                          fused_by_mask=fused_by_mask,
                          nvalid_by_mask=nvalid_by_mask, rec_mask=hb.rec_mask,
                          centers_w=hb.centers, radii_w=hb.radii)
@@ -135,15 +163,20 @@ def _resolve_plans(
     platforms: Sequence[DevicePlatform],
     groups: Sequence[CycleGroup],
     *,
-    max_blocks: Dict[str, BucketBudget] | None,
+    max_blocks: Dict[str, BucketBudget] | int | None,
+    method: str = "auto",
     dtype=torch.float32,
+    obs_presorted: bool = False,
     geometry_only: bool = False,
 ) -> List[PlatformPlan]:
     """Every active platform's cycle plan, cached on the platform.
 
-    A platform with at least ``BUCKET_MIN_RECORDS`` records takes the
-    bucketed path, a smaller one the dense path.  The fused tables are built
-    in ``dtype`` and cached per dtype; ``geometry_only`` (budget planning)
+    Under ``method="auto"`` a platform with at least ``BUCKET_MIN_RECORDS``
+    records takes the bucketed path, a smaller one the dense path; "dense"
+    or "bucketed" force the kind.  The budget is the planned
+    :class:`.update.BucketBudget` (``max_blocks`` a dict), an int for every
+    bucketed platform, or the heuristic.  The fused tables are built in
+    ``dtype`` and cached per dtype; ``geometry_only`` (budget planning)
     builds none.
     """
     plans: List[PlatformPlan] = []
@@ -153,8 +186,10 @@ def _resolve_plans(
             gi for gi, grp in enumerate(groups) if st.active(grp.ivars[0]))
         if not clients or dp.xyz.shape[0] == 0:
             continue
-        kind = ("bucketed" if dp.xyz.shape[0] >= BUCKET_MIN_RECORDS
-                else "dense")
+        kind = method
+        if method == "auto":
+            kind = ("bucketed" if dp.xyz.shape[0] >= BUCKET_MIN_RECORDS
+                    else "dense")
         masks: List[tuple] = []     # distinct assimilation masks share tables
         mask_idx = []
         for gi in clients:
@@ -175,21 +210,28 @@ def _resolve_plans(
         blocking = None
         budget = None
         if kind == "bucketed":
-            planned = (max_blocks or {}).get(st.name)
+            mb_req = (max_blocks.get(st.name) if isinstance(max_blocks, dict)
+                      else max_blocks)
+            planned = mb_req if isinstance(mb_req, BucketBudget) else None
             bs = (planned.block_size if planned is not None else
                   auto_block_size(normalize_coords(dp.xyz, wide_h, wide_v)))
-            bkey = ("cycle", tuple(masks), str(dtype), wide_h, wide_v, bs)
+            bkey = ("cycle", tuple(masks), str(dtype), wide_h, wide_v, bs,
+                    obs_presorted)
             # a full blocking serves a geometry-only request as well
             blocking = cache.get(bkey + (False,))
             if blocking is None and geometry_only:
                 blocking = cache.get(bkey + (True,))
             if blocking is None:
                 blocking = _cycle_blocking(dp, masks, wide_h, wide_v, bs,
-                                           dtype, geometry_only=geometry_only)
+                                           dtype, presorted=obs_presorted,
+                                           geometry_only=geometry_only)
                 cache[bkey + (geometry_only,)] = blocking
-            budget = (min(planned.max_blocks, blocking.n_blocks)
-                      if planned is not None
-                      else default_max_blocks(blocking.n_blocks))
+            if planned is not None:
+                budget = min(planned.max_blocks, blocking.n_blocks)
+            elif mb_req:
+                budget = int(mb_req)
+            else:
+                budget = default_max_blocks(blocking.n_blocks)
         plans.append(PlatformPlan(
             dp=dp, kind=kind, clients=clients, wide_h=wide_h, wide_v=wide_v,
             mask_idx=tuple(mask_idx), tables=tuple(tables),
@@ -275,21 +317,28 @@ def plan_cycle_budgets(
     *,
     chunk: int = 4096,
     subchunk: int = 512,
+    method: str = "auto",
+    point_order: str = "auto",
     solver_dtype=torch.float32,
+    obs_presorted: bool = False,
 ) -> Dict[str, BucketBudget]:
     """Exact per-platform candidate budgets for the cycle's subchunks.
 
     Culls in each bucketed platform's wide client metric at the subchunking
-    :func:`update_points_cycle` will use with the same ``chunk`` and
-    ``subchunk``, and rounds each budget up to a multiple of 16, so planned
-    budgets never overflow.  ``solver_dtype`` is the one the update will
-    take: a full blocking of that dtype, if cached, serves the planning.
+    :func:`update_points_cycle` will use with the same ``chunk``,
+    ``subchunk``, ``method``, ``point_order`` and ``obs_presorted``, and
+    rounds each budget up to a multiple of 16, so planned budgets never
+    overflow.  ``solver_dtype`` is the one the update will take: a full
+    blocking of that dtype, if cached, serves the planning.  Builds no
+    table.
     """
+    _check_cycle_options(method, point_order)
     q = points_xyz
     b = q.shape[0]
-    plans = _resolve_plans(platforms, groups, max_blocks=None,
-                           dtype=solver_dtype, geometry_only=True)
-    perm = _cycle_point_perm(q, plans)
+    plans = _resolve_plans(platforms, groups, max_blocks=None, method=method,
+                           dtype=solver_dtype, obs_presorted=obs_presorted,
+                           geometry_only=True)
+    perm = _cycle_point_perm(q, plans, point_order)
     if perm is not None:
         q = q[perm]
     _, sub = _subchunk(b, chunk, subchunk)
@@ -309,16 +358,22 @@ def plan_cycle_budgets(
     return out
 
 
-def _cycle_point_perm(q, plans):
-    """Hilbert point order in the largest bucketed platform's wide metric.
+def _cycle_point_perm(q, plans, point_order="auto"):
+    """Hilbert point order in the largest bucketed platform's wide metric,
+    or of the raw coordinates under ``point_order="morton"`` without one.
 
-    ``None`` (input order) when no platform is bucketed.
+    ``None`` (input order) for ``"linear"``, and for ``"auto"`` when no
+    platform is bucketed.
     """
     bucketed = [p for p in plans if p.kind == "bucketed"]
-    if not bucketed:
+    if not (point_order == "morton"
+            or (point_order == "auto" and bucketed)):
         return None
-    p = max(bucketed, key=lambda p: p.dp.xyz.shape[0])
-    keys = hilbert3(normalize_coords(q, p.wide_h, p.wide_v))
+    if bucketed:
+        p = max(bucketed, key=lambda p: p.dp.xyz.shape[0])
+        keys = hilbert3(normalize_coords(q, p.wide_h, p.wide_v))
+    else:
+        keys = hilbert3(q)
     return torch.argsort(keys, stable=True)
 
 
@@ -367,7 +422,10 @@ def update_points_cycle(
     weight_function: int,
     chunk: int = 4096,
     subchunk: int = 512,
-    max_blocks: Dict[str, BucketBudget] | None = None,
+    method: str = "auto",
+    max_blocks: Dict[str, BucketBudget] | int | None = None,
+    point_order: str = "auto",
+    obs_presorted: bool = False,
     solver_dtype=torch.float32,
     return_diagnostics: bool = False,
 ):
@@ -379,8 +437,16 @@ def update_points_cycle(
       points_xyz: ``[B, 3]`` shared analysis points (meters).
       groups: per-group ivars/inflats/relaxations; ``ivars[0]`` gives the
               group's localization radii and assimilation mask.
-      max_blocks: per-platform budgets from :func:`plan_cycle_budgets`
-              (None = heuristic; watch the overflow diagnostic).
+      method: ``"auto"``, ``"dense"`` or ``"bucketed"`` (``CYCLE_METHODS``);
+              ``"gather"`` raises ``ValueError``.
+      max_blocks: per-platform budgets from :func:`plan_cycle_budgets`, an
+              int for every bucketed platform, or None (the heuristic;
+              watch the overflow diagnostic).
+      point_order: ``"auto"`` (Hilbert order iff a platform is bucketed),
+              ``"morton"`` (always) or ``"linear"`` (the input order).
+      obs_presorted: the records are already in Hilbert order of the
+              blocking's wide metric (one client group: its own radii);
+              the blocking takes them as given, without a sorted copy.
       chunk / subchunk: solve batch size / accumulation cull granularity.
       solver_dtype: dtype of the tables, the accumulation and the solve.
 
@@ -391,6 +457,7 @@ def update_points_cycle(
     q = points_xyz
     b, v_tot, k = xb.shape
     check_ensemble_size(k, xb.device, solver_dtype)
+    _check_cycle_options(method, point_order)
     if q.shape != (b, 3):
         raise ValueError(f"points_xyz must be [{b}, 3], got {tuple(q.shape)}")
     sizes = [len(grp.ivars) for grp in groups]
@@ -401,8 +468,9 @@ def update_points_cycle(
         col0.append(col0[-1] + s_)
 
     plans = _resolve_plans(platforms, groups, max_blocks=max_blocks,
-                           dtype=solver_dtype)
-    perm = _cycle_point_perm(q, plans)
+                           method=method, dtype=solver_dtype,
+                           obs_presorted=obs_presorted)
+    perm = _cycle_point_perm(q, plans, point_order)
     chunk, sub = _subchunk(b, chunk, subchunk)
     xa = torch.empty((b, v_tot, k), dtype=xb.dtype, device=xb.device)
     ovf = torch.zeros((), dtype=torch.int64, device=xb.device)

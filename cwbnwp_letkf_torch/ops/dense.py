@@ -28,6 +28,26 @@ from ..constants import GC1999_SQ
 from ..localization import WEIGHT_GC1999, gaspari_cohn_1999
 from .whiten import ObsStats
 
+#: ``accum_precision`` names of the JAX package (bf16_3x and full float32
+#: there); see :func:`set_accum_precision`
+ACCUM_PRECISIONS = ("high", "highest")
+
+
+def set_accum_precision(name: str) -> None:
+    """The float32 normal-term accumulation precision, by the JAX package's
+    names ``"high"`` (its default) or ``"highest"``.
+
+    Both names leave the numerics as they are: the port accumulates in full
+    float32 under both (TF32 is off, :mod:`..device`, and CUDA cores have no
+    bf16_3x), so its ``"high"`` is the JAX package's ``"highest"``, and
+    nothing is stored.  Any other name is refused with the JAX package's
+    message.
+    """
+    if name not in ACCUM_PRECISIONS:
+        raise ValueError(f"accum_precision must be one of "
+                         f"{sorted(ACCUM_PRECISIONS)}, got {name!r}")
+
+
 #: rows per slice of the table build: bounds the einsum's transient to one
 #: slice (the table at the k=96 production radar volume is ~7 GB)
 _TABLE_ROW_SLICE = 16384

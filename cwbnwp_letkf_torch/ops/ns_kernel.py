@@ -26,8 +26,9 @@ from . import cuda_build
 #: kernel launches per packing since import (or since a caller reset them)
 LAUNCHES = {"trio": 0, "rmul": 0}
 
-#: largest ensemble size the kernel takes (three padded k x k fp32 buffers
-#: of each of two resident blocks must fit an SM's shared memory)
+#: largest ensemble size the kernel takes (a block's three padded k x k
+#: fp32 buffers must fit an SM's shared memory; at k=96 one block is
+#: resident per SM, as ``config(96)["blocks_per_sm"]`` reports)
 MAX_K = 96
 
 SOURCE = cuda_build.CSRC / "ns_invsqrt.cu"

@@ -13,10 +13,13 @@ Two ways to the inverse factors, chosen by :func:`set_eigh_backend`:
   the hand-written CUDA kernel (:mod:`.ns_kernel`) for tensors on a card,
   its plain version :func:`ns_invsqrt` for tensors on the CPU.  Float32 only.
 - an eigendecomposition ``A = V diag(lam) V^T``: ``torch.linalg.eigh``
-  (``"xla"``, and every float64 solve) or the Jacobi eigensolvers
-  (``"jacobi"``, :mod:`.jacobi_eigh`).
+  (``"xla"``, every float64 solve, and the CPU's eigen factors) or the
+  Jacobi eigensolvers (``"jacobi"``, and the card's eigen factors under
+  ``"auto"``; :mod:`.jacobi_eigh`).
 
-Every solve takes ``solver_dtype`` float32 or float64.
+Every solve takes ``solver_dtype`` float32 or float64;
+:func:`letkf_solve_group_refined` takes the float32 ``Z`` to float64 by one
+Newton step.
 """
 from __future__ import annotations
 
@@ -111,10 +114,14 @@ EIGH_BACKENDS = ("auto", "xla", "jacobi", "ns")
 def set_eigh_backend(name: str):
     """Select the ensemble-space factorization of every later solve.
 
-    - ``"auto"`` (default): Newton-Schulz for float32 ``[B, k, k]`` batches,
-      on every device; ``torch.linalg.eigh`` otherwise.  (The JAX package's
-      ``"auto"`` eigendecomposed on the CPU; here the CPU runs the card's
-      path on the plain versions.)
+    - ``"auto"`` (default): Newton-Schulz for float32 ``[B, k, k]`` solves,
+      on every device; ``torch.linalg.eigh`` otherwise.  The eigen factors
+      (:func:`letkf_weight_factors`, :func:`letkf_weight_factors_from_normal`)
+      of a float32 batch take the Jacobi kernels on a card and
+      ``torch.linalg.eigh`` on the CPU, as the JAX package takes its Pallas
+      Jacobi off the CPU and LAPACK on it.  (The JAX package's ``"auto"``
+      solves by eigendecomposition on the CPU; here the CPU runs the card's
+      Newton-Schulz path on the plain versions.)
     - ``"ns"``: another name for ``"auto"``, kept so that call sites written
       for the JAX package (where the two differ on the CPU) run unchanged.
     - ``"xla"``: ``torch.linalg.eigh``, the counterpart of the JAX package's
@@ -130,8 +137,14 @@ def set_eigh_backend(name: str):
 
 
 def _use_jacobi(a: torch.Tensor) -> bool:
-    return (_EIGH_BACKEND == "jacobi" and a.dtype == torch.float32
-            and a.ndim == 3)
+    """Whether an eigendecomposition of ``a`` takes the Jacobi solvers:
+    float32 ``[B, k, k]`` under ``"jacobi"``, and on a card under
+    ``"auto"``.  Above ``eigh_kernel.MAX_K`` the card's kernels raise; no
+    library call stands in for them."""
+    if a.dtype != torch.float32 or a.ndim != 3:
+        return False
+    return (_EIGH_BACKEND == "jacobi"
+            or (_EIGH_BACKEND in ("auto", "ns") and a.device.type == "cuda"))
 
 
 def _use_ns(a_obs: torch.Tensor) -> bool:
@@ -140,15 +153,39 @@ def _use_ns(a_obs: torch.Tensor) -> bool:
             and a_obs.ndim == 3)
 
 
+_NS_IMPL = "auto"
+
+#: the names :func:`set_ns_impl` takes, the JAX package's
+NS_IMPLS = ("auto", "pallas", "xla")
+
+
+def set_ns_impl(name: str):
+    """Select the Newton-Schulz implementation by the JAX package's names.
+
+    - ``"auto"`` (default) and ``"pallas"``: the CUDA kernel (K1) for
+      tensors on a card, its plain version :func:`ns_invsqrt` for tensors
+      on the CPU;
+    - ``"xla"``: the plain iteration, which the port runs on the CPU only:
+      a Newton-Schulz solve of tensors on a card raises under it.
+
+    A kernel that fails raises; no other implementation stands in for it.
+    """
+    global _NS_IMPL
+    if name not in NS_IMPLS:
+        raise ValueError(f"unknown ns impl {name!r}")
+    _NS_IMPL = name
+
+
 def check_ensemble_size(k: int, device, dtype=torch.float32) -> None:
     """Refuse, before any work, an ensemble the card's kernels do not take.
 
     A float32 solve on a CUDA device under ``"auto"``, ``"ns"`` or
     ``"jacobi"`` goes to the Newton-Schulz or Jacobi kernels, which hold a
     k x k matrix in one block's shared memory: ``ValueError`` for
-    ``k > MAX_K`` there.  A CPU solve, a float64 solve and ``"xla"`` take any
-    k.  The entry points call this first, so a refused k fails before the
-    planning and the accumulation, not inside the first chunk's solve.
+    ``k > MAX_K`` there.  A CPU solve, a float64 solve and ``"xla"`` take
+    any k.  The entry
+    points call this first, so a refused k fails before the planning and the
+    accumulation, not inside the first chunk's solve.
     """
     max_k = min(ns_kernel.MAX_K, eigh_kernel.MAX_K)
     if (torch.device(device).type == "cuda" and dtype == torch.float32
@@ -160,14 +197,86 @@ def check_ensemble_size(k: int, device, dtype=torch.float32) -> None:
 
 
 def _ns_z(a_obs: torch.Tensor, inflat: float):
-    """``(z, residual)``: the CUDA kernel on a card, the plain version on the CPU."""
+    """``(z, residual)``: the CUDA kernel on a card, the plain version on the
+    CPU.  Under ``set_ns_impl("xla")`` a card's tensors raise."""
     if a_obs.device.type == "cuda":
+        if _NS_IMPL == "xla":
+            raise ValueError(
+                "set_ns_impl('xla') selects the plain Newton-Schulz "
+                "iteration, which the port runs on the CPU only; use "
+                "'auto' or 'pallas' for tensors on a card")
         z, _, resid = ns_kernel.ns_invsqrt_cuda(a_obs.contiguous(), float(inflat))
         return z, resid
     if a_obs.device.type == "cpu":
         z, _, resid = ns_invsqrt(a_obs, float(inflat), return_info=True)
         return z, resid
     raise ValueError(f"no Newton-Schulz solve for tensors on {a_obs.device}")
+
+
+def ns_invsqrt_refined(a_obs: torch.Tensor, inflat: float):
+    """``(z64, residual)``: the float32 Newton-Schulz ``Z`` (the CUDA kernel on
+    a card) refined in float64 by one Newton step.
+
+    With ``X_0`` the float32 ``Z`` and ``A = a_obs + inflat*I`` in float64::
+
+        X' = 1.5 X - 0.5 X (A X^2)
+
+    One step squares the part of the float32 stage's error that commutes
+    with ``A`` (on the k=24 case of tests/test_ns_solver.py the relative
+    error against float64 eigh falls from 4.8e-7 to 4.9e-9), for three
+    float64 products instead of a float64 eigendecomposition.  The result is
+    re-symmetrized (the products drift asymmetric by float64 rounding).
+    ``residual`` is the float32 stage's.
+    The products are plain float64 ``torch.matmul`` (the JAX package does
+    them by its Ozaki scheme, ``ops/df64.py``, which is not ported).
+    """
+    z32, resid = _ns_z(a_obs.to(torch.float32), float(inflat))
+    k = a_obs.shape[-1]
+    f64 = torch.float64
+    a64 = a_obs.to(f64) + inflat * torch.eye(k, dtype=f64, device=a_obs.device)
+    x = z32.to(f64)
+    x = 1.5 * x - 0.5 * (x @ (a64 @ (x @ x)))
+    return 0.5 * (x + x.transpose(-1, -2)), resid
+
+
+def letkf_solve_group_refined(a_obs, g, xb, inflats, has_obs, *, rtpp_alpha,
+                              rtps_alpha, return_diagnostics: bool = False):
+    """The fused group solve at float64-refined precision.
+
+    The contract of :func:`letkf_solve_group_from_normal` with
+    ``solver_dtype=float64``, but each distinct inflation value's
+    ``Z = A^(-1/2)`` comes from :func:`ns_invsqrt_refined` (one float32
+    Newton-Schulz call, the CUDA kernel on a card) and the weights and
+    RTPP/RTPS run in float64.  Takes float32 or float64 normal terms.
+    Returns ``xa [B, V, k]`` in ``xb``'s dtype, with ``return_diagnostics``
+    also ``{"ns_residual": 0-d float32}`` (the float32 stages' worst).
+    """
+    f64 = torch.float64
+    xb64 = xb.to(f64)
+    g64 = g.to(f64)
+    k = xb.shape[-1]
+    xb_mean = xb64.mean(-1, keepdim=True)
+    xb_prime = xb64 - xb_mean
+    resid = torch.zeros((), dtype=torch.float32, device=xb.device)
+    by_val = {}
+    for vi, val in enumerate(inflats):
+        by_val.setdefault(float(val), []).append(vi)
+    xa_cols = [None] * len(inflats)
+    for val, vis in by_val.items():
+        z, r_val = ns_invsqrt_refined(a_obs, val)
+        resid = torch.maximum(resid, r_val.to(torch.float32))
+        zg = torch.einsum("bij,bj->bi", z, g64)
+        u = torch.einsum("bij,bvj->bvi", z, xb_prime[:, vis, :])
+        s = (zg[:, None, :] * u).sum(-1, keepdim=True)
+        xa_sub = xb_mean[:, vis, :] + s + (k - 1) ** 0.5 * u
+        for j, vi in enumerate(vis):
+            xa_cols[vi] = xa_sub[:, j, :]
+    xa = _relax_group(torch.stack(xa_cols, 1), xb_prime, rtpp_alpha,
+                      rtps_alpha)
+    xa = torch.where(has_obs[:, None, None], xa.to(xb.dtype), xb)
+    if return_diagnostics:
+        return xa, {"ns_residual": resid}
+    return xa
 
 
 def _eigh_batch(a: torch.Tensor):

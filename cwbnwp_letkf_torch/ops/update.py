@@ -4,8 +4,9 @@ Port of the JAX package's ``ops/update.py``: the library path behind the
 one-variable-at-a-time analysis (``driver.run_analysis(fuse_variables=False)``
 there).  Points are Hilbert-ordered and processed in chunks; per chunk each
 active platform's whitened normal terms are accumulated, densely over all
-records (:mod:`.dense`) or over culled record blocks (:mod:`.bucketed`), and
-the ensemble-space solve (:mod:`.solver`) runs on the batch.  The chunk loop
+records (:mod:`.dense`), over culled record blocks (:mod:`.bucketed`) or from
+each point's nearest records (:mod:`.neighbors` and :mod:`.whiten`), and the
+ensemble-space solve (:mod:`.solver`) runs on the batch.  The chunk loop
 is an eager Python loop.  The fused multi-group cycle is :mod:`.cycle`.
 """
 from __future__ import annotations
@@ -19,13 +20,18 @@ from .bucketed import (auto_block_size, bucket_platform,
                        bucketed_platform_terms, default_max_blocks, hilbert3,
                        required_max_blocks)
 from .dense import dense_platform_terms, fused_platform_table
-from .neighbors import normalize_coords
+from .neighbors import normalize_coords, radius_neighbors
 from .solver import (check_ensemble_size, letkf_solve_from_normal,
                      letkf_solve_group_from_normal)
-from .whiten import ObsStats, platform_obs_stats
+from .whiten import ObsStats, accumulate_platform_terms, platform_obs_stats
 
-#: normal-term accumulation methods of the JAX package; "gather" is not
-#: ported yet (ROADMAP M8) and raises
+#: normal-term accumulation methods: "dense" (one product against the fused
+#: per-record table), "bucketed" (the same over culled record blocks),
+#: "gather" (top-k neighbor search and obs gather, the reference's kd-tree
+#: structure) and "auto" (bucketed from BUCKET_MIN_RECORDS records, else
+#: dense).  The same result wherever the cap does not bind; where it binds
+#: gather keeps the n_max nearest records and dense/bucketed the records
+#: under the cap multisection's threshold.
 ACCUMULATE_METHODS = ("dense", "gather", "bucketed", "auto")
 
 #: record count from which a platform takes the block-culled (bucketed)
@@ -87,9 +93,6 @@ def dense_table(dp: DevicePlatform, mask: tuple, dtype):
 def _check_method(method: str) -> None:
     if method not in ACCUMULATE_METHODS:
         raise ValueError(f"method must be one of {ACCUMULATE_METHODS}")
-    if method == "gather":
-        raise ValueError("method='gather' (top-k neighbor search and obs "
-                         "gather) is not ported yet: ROADMAP M8")
 
 
 def _resolve_kind(method: str, dp: DevicePlatform) -> str:
@@ -113,7 +116,8 @@ def _platform_accumulators(active, kinds, iv, max_blocks, solver_dtype,
     """Each active platform's accumulation: ``(dp, obs_norm, kind, payload)``.
 
     The payload is the fused table and its counts, or the blocking (which
-    holds its own table, in block order) and its candidate budget.  The
+    holds its own table, in block order) and its candidate budget; a gather
+    platform has none.  The
     budget is the planned one (``max_blocks`` a dict of
     :class:`BucketBudget`, or an int), else the exact need of ``q_chunks``
     ``[n_chunks, chunk, 3]`` rounded up to 16s, else the heuristic.
@@ -124,6 +128,9 @@ def _platform_accumulators(active, kinds, iv, max_blocks, solver_dtype,
         st = dp.static
         cache = dp.cache if dp.cache is not None else {}
         mask = st.assim_mask(iv)
+        if kind == "gather":
+            accs.append((dp, on, "gather", None))
+            continue
         if kind == "dense":
             accs.append((dp, on, "dense", dense_table(dp, mask, solver_dtype)))
             continue
@@ -168,10 +175,15 @@ def _accumulate_chunk(qc, accs, iv, weight_function, solver_dtype, k):
                 qn, bp, n_max=st.max_lz_pts, weight_function=weight_function,
                 max_blocks=mb)
             ovf += o_p
-        else:
+        elif kind == "dense":
             a_p, g_p, c_p = dense_platform_terms(
                 qn, on, *payload, n_max=st.max_lz_pts,
                 weight_function=weight_function)
+        else:
+            nb = radius_neighbors(qn, on, n_max=st.max_lz_pts, chunk=c)
+            a_p, g_p, c_p = accumulate_platform_terms(
+                nb, dp.stats, st.assim_mask(iv), weight_function,
+                solver_dtype=solver_dtype)
         a_obs += a_p
         g += g_p
         cnt += c_p
@@ -221,7 +233,8 @@ def plan_max_blocks(
 ) -> dict:
     """Exact per-platform candidate budgets ``{name: BucketBudget}`` for
     :func:`update_points` with the same points, ``chunk``, ``method`` and
-    ``point_order``: planned budgets never overflow."""
+    ``point_order``: planned budgets never overflow.  Only the bucketed
+    platforms get one."""
     if n_shards > 1:
         raise ValueError("n_shards > 1 plans for the multi-device update, "
                          "which is not ported yet: ROADMAP M11")
@@ -309,8 +322,9 @@ def update_points(
                   per-variable configuration table.
       inflat:     ``(k-1)/multi_infl(ivar)``.
       chunk:      points per solve batch.
-      method:     ``"auto"`` (bucketed from ``BUCKET_MIN_RECORDS`` records),
-                  ``"dense"`` or ``"bucketed"``.
+      method:     ``"auto"`` (bucketed from ``BUCKET_MIN_RECORDS`` records,
+                  else dense), ``"dense"``, ``"bucketed"`` or ``"gather"``
+                  (see ``ACCUMULATE_METHODS``).
       max_blocks: candidate-block budget: :func:`plan_max_blocks`' dict, an
                   int, or None for the exact need of these points.
       point_order: ``"morton"``, ``"linear"`` or ``"auto"`` (Hilbert order
@@ -361,8 +375,10 @@ def update_points_group(
     only the weight application repeats per variable.
 
     ``xb`` is ``[B, V, k]``; ``inflats``, ``rtpp_alpha`` and ``rtps_alpha``
-    are ``[V]`` (0 disables a relaxation).  Otherwise as
-    :func:`update_points`.  Returns ``xa [B, V, k]``.
+    are ``[V]`` (0 disables a relaxation).  ``method`` is one of the four of
+    ``ACCUMULATE_METHODS``: ``"auto"``, ``"dense"``, ``"bucketed"`` or
+    ``"gather"``.  Otherwise as :func:`update_points`.  Returns
+    ``xa [B, V, k]``.
     """
     check_ensemble_size(xb.shape[-1], xb.device, solver_dtype)
     n_vars = xb.shape[1]

@@ -1,16 +1,23 @@
-"""Per-observation statistics and QC, once per platform.
+"""Per-observation statistics and QC, once per platform; the gathered
+normal terms of the neighbor-search path.
 
-Port of ``ObsStats`` and ``platform_obs_stats`` of
-the JAX package's ``ops/whiten.py`` (letkf_yoyb, module_letkf_core.f90:
-429-437,497-510).  The reference re-derives each observation's ensemble
-statistics and rejection at every gridpoint that sees it; they depend only on
-the observation, so they are computed once here.
+Port of the JAX package's ``ops/whiten.py`` (letkf_yoyb,
+module_letkf_core.f90:300-595).  The reference re-derives each observation's
+ensemble statistics and rejection at every gridpoint that sees it; they
+depend only on the observation, so they are computed once per platform
+(:func:`platform_obs_stats`).  The per-gridpoint work of the gather path is
+then a gather, a distance-weight multiply and two products
+(:func:`accumulate_platform_terms`).  A masked slot (outside the radius,
+padding, rejected, or not assimilated) contributes an exact zero.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Tuple
 
 import torch
+
+from ..localization import obs_error_inv_weight
+from .neighbors import NeighborSet
 
 
 class ObsStats(NamedTuple):
@@ -66,3 +73,50 @@ def platform_obs_stats(
     else:
         rejected = outlier
     return ObsStats(omm=omm, bg=bg, err=err, valid=qc_ok & ~rejected)
+
+
+def accumulate_platform_terms(
+    nb: NeighborSet,
+    stats: ObsStats,
+    assim_v: Tuple[bool, ...],
+    weight_function: int,
+    *,
+    solver_dtype=torch.float32,
+):
+    """Gather one platform's local obs and accumulate its normal terms.
+
+    For ``B`` gridpoints with neighbor lists ``nb`` over this platform's
+    records returns ``(a_obs [B, k, k], g [B, k], count [B] int32)``::
+
+      a_obs = Yb' Yb'^T,   g = Yb' yo',   count = accepted obs
+
+    with the whitened slots ``yo' = (obs - mean) * error_inv`` and
+    ``yb' = bg * error_inv`` (letkf_core.f90:439-453), ``error_inv`` carrying
+    the distance localization.  Accepted obs of zero weight still count
+    (letkf_core.f90:455,542).  ``assim_v[v]`` switches off observed variables
+    not assimilated into the analysis variable.  The active variables'
+    slots are gathered with one flattened index ``v * R + idx``; indices of
+    masked slots are clamped into range first and the slots zeroed after.
+    """
+    active = [v for v, a in enumerate(assim_v) if a]
+    if not active:
+        raise ValueError("accumulate_platform_terms called with no active vars")
+    idx = nb.idx
+    b, n = idx.shape
+    r = stats.omm.shape[-1]
+    k = stats.bg.shape[-1]
+    av = torch.tensor(active, dtype=torch.int64, device=idx.device)
+    idx_f = (av[None, :, None] * r
+             + idx.clamp(0, r - 1)[:, None, :]).reshape(b, len(active) * n)
+    omm = stats.omm.reshape(-1)[idx_f]                         # [B, Vn]
+    err = stats.err.reshape(-1)[idx_f]
+    val = stats.valid.reshape(-1)[idx_f] & nb.mask.repeat(1, len(active))
+    bg = stats.bg.reshape(-1, k)[idx_f]                        # [B, Vn, k]
+    einv = obs_error_inv_weight(nb.r2.repeat(1, len(active)), err,
+                                weight_function)
+    einv = torch.where(val, einv, 0.0).to(solver_dtype)
+    yo = omm.to(solver_dtype) * einv
+    yb = bg.to(solver_dtype) * einv[..., None]
+    a_obs = torch.einsum("bnk,bnl->bkl", yb, yb)
+    g = torch.einsum("bnk,bn->bk", yb, yo)
+    return a_obs, g, val.sum(-1, dtype=torch.int32)

@@ -270,7 +270,6 @@ def test_no_card_raises_before_reading(tmp_path, monkeypatch):
 @pytest.mark.parametrize("argv,match", [
     (["--distributed"], "M11"),
     (["--distributed", "--platform", "cpu"], "M11"),
-    (["--device-breakdown", "--platform", "cpu"], "M12"),
 ])
 def test_unported_options_raise(tmp_path, argv, match):
     _refused(argv, ValueError, match, tmp_path)

@@ -368,7 +368,6 @@ def test_streaming_matches_eager(case, tmp_path):
 @pytest.mark.parametrize("kw,match", [
     (dict(mesh=object()), "M11"),
     (dict(distributed=True), "M11"),
-    (dict(device_breakdown=True), "M12"),
     (dict(accum_precision="bf16"), "accum_precision"),
 ])
 def test_refusals(case, kw, match):

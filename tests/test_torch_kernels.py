@@ -154,6 +154,25 @@ def test_ns_z_dispatches_cuda_to_kernel(cuda):
     assert z.is_cuda and float(resid) <= 1e-4
 
 
+def test_ns_impl_xla_refuses_cuda_tensors(cuda):
+    """``set_ns_impl("xla")`` never runs the plain iteration on a card: the
+    solve raises and launches nothing; "pallas" launches K1."""
+    a = torch.from_numpy(normal_case(np.random.default_rng(6), 5, 40, 80)[0])
+    a = a.to(cuda)
+    before = dict(ns_kernel.LAUNCHES)
+    try:
+        solver.set_ns_impl("xla")
+        with pytest.raises(ValueError, match="CPU only"):
+            solver._ns_z(a, 39 / 1.6)
+        assert ns_kernel.LAUNCHES == before
+        solver.set_ns_impl("pallas")
+        z, resid = solver._ns_z(a, 39 / 1.6)
+    finally:
+        solver.set_ns_impl("auto")
+    assert ns_kernel.LAUNCHES == {**before, "trio": before["trio"] + 1}
+    assert z.is_cuda and float(resid) <= 1e-4
+
+
 @pytest.mark.parametrize("bad", [
     lambda d: torch.zeros(4, 40, 40, dtype=torch.float64, device=d),
     lambda d: torch.zeros(4, 97, 97, device=d),
@@ -308,3 +327,44 @@ def test_jacobi_solve_on_cuda_has_no_fallback(cuda):
                     solver.letkf_solve_from_normal(a, g, xb, k - 1.0, has)
     finally:
         solver.set_eigh_backend("auto")
+
+
+@pytest.mark.parametrize("k,name", [(40, "parallel"), (41, "cyclic")])
+def test_auto_eigen_factors_launch_jacobi_kernels(cuda, k, name):
+    """Under "auto" the eigen factors of a float32 batch on a card are the
+    Jacobi kernels' (K3 at even k, K4 at odd), never ``torch.linalg.eigh``;
+    above the kernels' k they raise."""
+    a_np, g_np = normal_case(np.random.default_rng(310 + k), 16, k, 2 * k)
+    a, g = (torch.from_numpy(x).to(cuda) for x in (a_np, g_np))
+    inflat = (k - 1) / 1.6
+    before = dict(eigh_kernel.LAUNCHES)
+    lam, v, _ = solver.letkf_weight_factors_from_normal(a, g, inflat)
+    after = dict(eigh_kernel.LAUNCHES)
+    assert after[name] == before[name] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+    assert_eigh_close(lam.cpu().numpy(), v.cpu().numpy(),
+                      a_np + inflat * np.eye(k, dtype=np.float32))
+    big = torch.eye(eigh_kernel.MAX_K + 1, device=cuda)[None]
+    with pytest.raises(ValueError):
+        solver.letkf_weight_factors_from_normal(
+            big, torch.zeros(1, big.shape[-1], device=cuda), 1.0)
+
+
+def test_refined_solve_takes_k1_on_card(cuda):
+    """The float32 stage of the refined solve is K1 (one launch per distinct
+    inflation value), and the solve is within 1e-6 of the analysis scale of
+    the float64 solve (tests/test_ns_solver.py:144-163)."""
+    k, nb = 40, 64
+    a_np, g_np = normal_case(np.random.default_rng(320), nb, k, 80, scale=0.4)
+    a, g = (torch.from_numpy(x).to(cuda).double() for x in (a_np, g_np))
+    xb = torch.randn(nb, 2, k, device=cuda, dtype=torch.float64)
+    has = torch.ones(nb, dtype=torch.bool, device=cuda)
+    kw = dict(rtpp_alpha=(0.9, 0.0), rtps_alpha=(0.0, 0.9))
+    inflats = ((k - 1) / 1.1, (k - 1) / 1.6)
+    before = ns_kernel.LAUNCHES["trio"]
+    xa = solver.letkf_solve_group_refined(a, g, xb, inflats, has, **kw)
+    assert ns_kernel.LAUNCHES["trio"] == before + 2
+    ref = solver.letkf_solve_group_from_normal(
+        a, g, xb, inflats, has, solver_dtype=torch.float64, **kw)
+    sc = float(ref.abs().max())
+    assert float((xa - ref).abs().max()) <= 1e-6 * sc

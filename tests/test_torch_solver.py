@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from cwbnwp_letkf_tpu.ops import solver as jsolver
-from cwbnwp_letkf_torch.ops import ns_kernel
+from cwbnwp_letkf_torch.ops import eigh_kernel, ns_kernel
 from cwbnwp_letkf_torch.ops import solver
 
 from .torch_parity import (assert_ns_close, ill_conditioned_case,
@@ -24,6 +24,7 @@ def _ns_backend():
     yield
     jsolver.set_eigh_backend("auto")
     solver.set_eigh_backend("auto")
+    solver.set_ns_impl("auto")
 
 
 @pytest.mark.parametrize("k", [8, 21, 40, 96])
@@ -310,3 +311,117 @@ def test_check_ensemble_size(device, k, backend, dtype, ok):
     else:
         with pytest.raises(ValueError, match=f"k={k}.*k <= 96"):
             solver.check_ensemble_size(k, torch.device(device), dtype)
+
+
+def _refined_case():
+    """tests/test_ns_solver.py:118-141: k=24, 32 matrices of 120 obs."""
+    k = 24
+    rng = np.random.default_rng(4)
+    y = rng.standard_normal((32, k, 120)).astype(np.float32) * 0.4
+    return y @ np.transpose(y, (0, 2, 1)), (k - 1) / 1.1
+
+
+def test_ns_invsqrt_refined_beats_float32():
+    """The checks of tests/test_ns_solver.py:118-141 on the port: one
+    float64 Newton step takes Z twentyfold closer to float64 eigh, below
+    1e-7 relative, symmetric; and within 2e-8 of JAX's refined Z (the two
+    float32 stages differ by float32 roundings, which the step leaves at
+    2.8e-9 of max|Z|: measured)."""
+    a, inflat = _refined_case()
+    k = a.shape[-1]
+    before = dict(ns_kernel.LAUNCHES)
+    z64, resid = solver.ns_invsqrt_refined(torch.from_numpy(a), inflat)
+    assert ns_kernel.LAUNCHES == before          # the plain version on the CPU
+    assert z64.dtype == torch.float64 and float(resid) <= 1e-4
+    z32 = solver.ns_invsqrt(torch.from_numpy(a), inflat).numpy()
+    af = a.astype(np.float64) + inflat * np.eye(k)
+    lam, v = np.linalg.eigh(af)
+    zo = (v / np.sqrt(lam)[:, None, :]) @ np.transpose(v, (0, 2, 1))
+    err32 = np.abs(z32.astype(np.float64) - zo).max() / np.abs(zo).max()
+    err64 = np.abs(z64.numpy() - zo).max() / np.abs(zo).max()
+    assert err64 < err32 / 20, (err64, err32)
+    assert err64 < 1e-7
+    np.testing.assert_array_equal(z64.numpy(), z64.transpose(1, 2).numpy())
+    zj, _ = jsolver.ns_invsqrt_refined(jnp.asarray(a), inflat)
+    zj = np.asarray(zj)
+    np.testing.assert_allclose(z64.numpy(), zj, rtol=0,
+                               atol=2e-8 * np.abs(zj).max())
+
+
+def test_letkf_solve_group_refined_matches_float64():
+    """tests/test_ns_solver.py:144-163 on the port: the refined group solve
+    within 1e-6 of the analysis scale of the port's float64 solve, and
+    within 2e-8 of it of JAX's refined solve (measured 4.0e-9); points
+    without obs keep their background."""
+    k = 16
+    rng = np.random.default_rng(5)
+    nb = 64
+    y = rng.standard_normal((nb, k, 60)).astype(np.float32) * 0.4
+    a = (y @ np.transpose(y, (0, 2, 1))).astype(np.float64)
+    g = rng.standard_normal((nb, k))
+    xb = rng.standard_normal((nb, 2, k))
+    has = np.arange(nb) % 9 != 0
+    kw = dict(inflats=((k - 1) / 1.1, (k - 1) / 1.6),
+              rtpp_alpha=(0.9, 0.0), rtps_alpha=(0.0, 0.9))
+    xa_r, diag = solver.letkf_solve_group_refined(
+        torch.from_numpy(a), torch.from_numpy(g), torch.from_numpy(xb),
+        has_obs=torch.from_numpy(has), return_diagnostics=True, **kw)
+    xa_o = solver.letkf_solve_group_from_normal(
+        torch.from_numpy(a), torch.from_numpy(g), torch.from_numpy(xb),
+        kw["inflats"], torch.from_numpy(has), rtpp_alpha=kw["rtpp_alpha"],
+        rtps_alpha=kw["rtps_alpha"], solver_dtype=torch.float64)
+    assert xa_r.dtype == torch.float64 and float(diag["ns_residual"]) <= 1e-4
+    sc = float(np.abs(xa_o.numpy()).max())
+    np.testing.assert_allclose(xa_r.numpy(), xa_o.numpy(), rtol=0,
+                               atol=1e-6 * sc)
+    np.testing.assert_array_equal(xa_r.numpy()[~has], xb[~has])
+    xa_j = np.asarray(jsolver.letkf_solve_group_refined(
+        jnp.asarray(a), jnp.asarray(g), jnp.asarray(xb),
+        has_obs=jnp.asarray(has), **kw))
+    np.testing.assert_allclose(xa_r.numpy(), xa_j, rtol=0, atol=2e-8 * sc)
+    # float32 normal terms and background: float32 out, the same solve
+    xa_32 = solver.letkf_solve_group_refined(
+        torch.from_numpy(a.astype(np.float32)), torch.from_numpy(g),
+        torch.from_numpy(xb.astype(np.float32)),
+        has_obs=torch.from_numpy(has), **kw)
+    assert xa_32.dtype == torch.float32
+    np.testing.assert_allclose(xa_32.numpy(), xa_o.numpy(), rtol=0,
+                               atol=1e-6 * sc)
+
+
+@pytest.mark.parametrize("name", ["auto", "pallas", "xla"])
+def test_set_ns_impl_names(name):
+    """The JAX package's names: on the CPU each takes the plain iteration,
+    and none lifts the card's size limit (the plain iteration never runs on
+    a card)."""
+    a, g = normal_case(np.random.default_rng(76), 6, 9, 20)
+    want = solver._ns_z(torch.from_numpy(a), 4.0)
+    solver.set_ns_impl(name)
+    z, resid = solver._ns_z(torch.from_numpy(a), 4.0)
+    assert torch.equal(z, want[0]) and float(resid) <= 1e-4
+    with pytest.raises(ValueError, match="k=97"):
+        solver.check_ensemble_size(97, torch.device("cuda"), torch.float32)
+
+
+def test_set_ns_impl_refuses_unknown():
+    with pytest.raises(ValueError, match="unknown ns impl 'mosaic'"):
+        solver.set_ns_impl("mosaic")
+    with pytest.raises(ValueError, match="unknown ns impl 'mosaic'"):
+        jsolver.set_ns_impl("mosaic")
+
+
+@pytest.mark.parametrize("k", [12, 13])
+def test_auto_eigen_factors_on_cpu_are_linalg_eigh(k):
+    """Under "auto" the CPU's eigen factors are ``torch.linalg.eigh``'s, as
+    the JAX package keeps LAPACK on the CPU; no kernel is launched."""
+    rng = np.random.default_rng(77)
+    a, g = normal_case(rng, 10, k, 2 * k)
+    inflat = (k - 1) / 1.3
+    before = (dict(ns_kernel.LAUNCHES), dict(eigh_kernel.LAUNCHES))
+    lam, v, g2 = solver.letkf_weight_factors_from_normal(
+        torch.from_numpy(a), torch.from_numpy(g), inflat)
+    assert (dict(ns_kernel.LAUNCHES), dict(eigh_kernel.LAUNCHES)) == before
+    lam_e, v_e = torch.linalg.eigh(torch.from_numpy(a)
+                                   + inflat * torch.eye(k))
+    assert torch.equal(lam, lam_e) and torch.equal(v, v_e)
+    assert torch.equal(g2, torch.from_numpy(g))

@@ -224,9 +224,6 @@ def test_unported_options_raise(case):
     pts, xb_v, plats = case
     _, tplats = _both(plats[:1])
     q = torch.from_numpy(pts)
-    with pytest.raises(ValueError, match="M8"):
-        update.update_points(torch.from_numpy(xb_v[:, 0]), q, tplats, 0,
-                             inflat=5.0, weight_function=0, method="gather")
     with pytest.raises(ValueError, match="M11"):
         update.plan_max_blocks(q, tplats, 0, n_shards=2)
     with pytest.raises(ValueError):
