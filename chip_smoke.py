@@ -110,7 +110,22 @@ Phases, in order; any failure raises and the exit code is not 0:
    ``torch.linalg.eigh`` on the same matrices); ``profiling.device_breakdown``
    on the bench case (4,096 points): the stages positive and additive, K3
    launched in the ``eigh`` stage; and ``cli.main --device-breakdown`` on
-   ``generate_case``'s case, its ``device_breakdown`` in ``--metrics-json``.
+   ``generate_case``'s case, its ``device_breakdown`` in ``--metrics-json``;
+15. the multi-device layer (``parallel/``) on the one card: (a)
+   ``sharded_update_points_cycle`` on an in-process mesh of two shards of
+   the card (shards in turn), on phase 3's case with per-shard budgets (K1
+   counted, no overflow, converged, against phase 3's analysis within
+   ``XA_RTOL``), then warm beside a warm single-card cycle: the gap is the
+   cost of sharding on one card, not scaling; (b)
+   ``sharded_update_points_group`` for (U, V) under ``"jacobi"`` (K3) at
+   two shards against phase 8's (b); (c) a process group of world size 1
+   under NCCL: the member/point transposes round trip bit for bit, and
+   ``run_analysis(mesh, distributed=True)`` on phase 9's files through the
+   member-block streaming ensemble (K1 as often as phase 9) against phase
+   9's fused analysis, file by file (bit for bit, or within ``XA_RTOL`` of
+   the increment with the gap printed); (d) the pinned host-to-device rate
+   and ``scaling_model.predict`` fed with it and phase 3's warm cycle,
+   labelled a model.  NCCL at world size > 1 is not measured.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after; the launches made to compare a kernel with its plain
@@ -223,7 +238,7 @@ PROD_SLABS = 20
 PROD_CHUNK = 2048
 #: the depth cut of phase 13: slabs run until the next would end past this
 #: many seconds of slab runs (at least one slab; the count is printed)
-PROD_BUDGET_S = 60.0
+PROD_BUDGET_S = 45.0
 #: name -> (route, source, the TPU kernel it replaces)
 KERNELS = {
     "ns_invsqrt": ("cuda", "cwbnwp_letkf_torch/csrc/ns_invsqrt.cu",
@@ -609,7 +624,7 @@ def phase_slice(dev, case):
           f"update_points_cycle alone {cycle_s:.3f} s, "
           f"{b * N_VARS / cycle_s:.1f} var-point updates/s; peak device "
           f"memory {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
-    return pts_d, xb_d, truth_d, xa, dplats, groups, budgets, launches
+    return pts_d, xb_d, truth_d, xa, dplats, groups, budgets, launches, cycle_s
 
 
 def phase_real(pts_d, dplats, groups, budgets):
@@ -1216,10 +1231,12 @@ def pending_at_return(module):
         module.update_points_cycle = fn
 
 
-def phase_driver(dev, smi_line, grid=GRID, k=K, chunk=CHUNK):
+def phase_driver(dev, smi_line, grid=GRID, k=K, chunk=CHUNK, root=None):
     """Phase 9: ``driver.run_analysis`` on WRF member files; returns the K1
-    launches of the fused run and K1's ``max|dZ|`` against its plain version
-    on the run's first batch."""
+    launches of the fused run, K1's ``max|dZ|`` against its plain version
+    on the run's first batch, and the obs.  With ``root`` the files stay
+    there (phase 15 reads them again): the inputs, ``input.nml`` and the
+    fused analysis as ``wrfout_d01_###``."""
     from cwbnwp_letkf_torch import driver
     from cwbnwp_letkf_torch.config import LetkfConfig
     from cwbnwp_letkf_torch.io.netcdf import NetcdfReader
@@ -1229,7 +1246,8 @@ def phase_driver(dev, smi_line, grid=GRID, k=K, chunk=CHUNK):
     from cwbnwp_letkf_torch.ops import ns_kernel
 
     keys = [VAR_TABLE[v].field for v in VAR_UPDATE]
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_wrf_") as tmp:
+    with (contextlib.nullcontext(root) if root is not None else
+          tempfile.TemporaryDirectory(prefix="chip_smoke_wrf_")) as tmp:
         d = Path(tmp)
         t0 = time.time()
         rng = np.random.default_rng(SEED + 9)
@@ -1372,7 +1390,7 @@ def phase_driver(dev, smi_line, grid=GRID, k=K, chunk=CHUNK):
                     check(np.array_equal(nc.get_variable(name), want),
                           f"{path}: {name} read back differs")
         print(f"  write_ensemble {write_s:.3f} s; {k} files read back equal")
-    return fused_launches, err
+    return fused_launches, err, obs_data
 
 
 #: phase 10: the StageTimer stages of the CLI, as (name, stamp that opens
@@ -2119,6 +2137,219 @@ def phase_breakdown(dev, pts_d, xb_d, dplats, root):
     return counts["jacobi_parallel"]
 
 
+def free_port():
+    """A free TCP port on 127.0.0.1, for a process group's store."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_sharded(dev, smi_line, bench, xa3, cycle3_s, xa8b, d9, obs9,
+                  launches9):
+    """Phase 15: the multi-device layer on the one card; returns the
+    launches of each sharded path by kernel.
+
+    (a) ``sharded_update_points_cycle`` on an in-process mesh of two shards
+    of the card, on phase 3's case, held against phase 3's analysis, then
+    warm and timed: the gap to phase 3's warm cycle is the cost of sharding
+    on one card (two Hilbert orders and chunkings, shards in turn), not
+    scaling; (b) ``sharded_update_points_group`` for (U, V) under
+    ``"jacobi"`` (K3) at two shards, against phase 8's (b); (c) a process
+    group of world size 1 under NCCL: the member/point transposes round
+    trip bit for bit, then ``run_analysis(distributed=True)`` on phase 9's
+    files through the member-block streaming ensemble, against phase 9's
+    fused analysis; (d) the pinned host-to-device rate and the scaling
+    model fed with it and phase 3's warm cycle (a model, not a
+    measurement).
+    """
+    import os
+
+    import torch.distributed as dist
+
+    from cwbnwp_letkf_torch import driver
+    from cwbnwp_letkf_torch.config import LetkfConfig
+    from cwbnwp_letkf_torch.examples.scaling_model_report import report
+    from cwbnwp_letkf_torch.models.state import StreamingWrfEnsemble
+    from cwbnwp_letkf_torch.ops import cycle, solver, update
+    from cwbnwp_letkf_torch.parallel import make_mesh
+    from cwbnwp_letkf_torch.parallel.multihost import (
+        member_block, member_group_to_points, points_to_member_columns)
+    from cwbnwp_letkf_torch.parallel.scaling_model import pinned_h2d_bytes_s
+    from cwbnwp_letkf_torch.parallel.update import (
+        sharded_update_points_cycle, sharded_update_points_group)
+
+    pts_d, xb_d, dplats, groups = bench
+    b = pts_d.shape[0]
+    xb_v = xb_d[:, None, :].expand(b, N_VARS, K)
+    mesh2 = make_mesh([dev, dev])
+    chunks2 = 2 * -(-(-(-b // 2)) // CHUNK)    # the two shards' chunks
+    out = {"ns_invsqrt": {}, "jacobi_parallel": {}}
+
+    print(f"  (a) in-process mesh {[str(d) for d in mesh2.devices]}: the "
+          f"shards run in turn on one card")
+    kw = dict(weight_function=0, chunk=CHUNK, subchunk=SUBCHUNK)
+
+    def sharded_cycle():
+        budgets = cycle.plan_cycle_budgets(pts_d, dplats, groups, chunk=CHUNK,
+                                           subchunk=SUBCHUNK, n_shards=2)
+        t0 = time.time()
+        xa, diag = sharded_update_points_cycle(
+            mesh2, xb_v, pts_d, dplats, groups, max_blocks=budgets,
+            return_diagnostics=True, **kw)
+        torch.cuda.synchronize(dev)
+        wall = time.time() - t0
+        xa[:, MOIST] = solver.tune_q(xa[:, MOIST])
+        return xa, diag, budgets, wall
+
+    reset_counts()
+    xa, diag, budgets, cold = sharded_cycle()
+    counts = read_counts()
+    overflow, resid = int(diag["bucket_overflow"]), float(diag["ns_residual"])
+    print(f"  (a) first run {cold:.3f} s: budgets "
+          f"{ {n: tuple(bb) for n, bb in budgets.items()} } (n_shards=2), "
+          f"overflow {overflow}, ns_residual {resid:.3e}")
+    check(tuple(xa.shape) == (b, N_VARS, K), f"(a) xa {tuple(xa.shape)}")
+    check(bool(torch.isfinite(xa).all()), "(a) analysis not finite")
+    check(overflow == 0, f"(a) bucket overflow {overflow}")
+    check(resid <= NS_TOL, f"(a) ns_residual {resid} > {NS_TOL}")
+    check_only(counts, "ns_invsqrt", 2 * chunks2,
+               "(a) sharded NS cycle (2 per chunk of each shard)")
+    out["ns_invsqrt"]["launches_sharded_cycle"] = counts["ns_invsqrt"]
+    check_close(xa, xa3.to(dev), xb_v, "(a) two shards vs phase 3's cycle")
+    # the single-card cycle again, just before the warm sharded run: the
+    # host's launch rate drifts within a call, so the gap is read between
+    # neighbours
+    budgets1 = cycle.plan_cycle_budgets(pts_d, dplats, groups, chunk=CHUNK,
+                                        subchunk=SUBCHUNK)
+    t0 = time.time()
+    cycle.update_points_cycle(xb_v, pts_d, dplats, groups,
+                              max_blocks=budgets1, **kw)
+    torch.cuda.synchronize(dev)
+    single = time.time() - t0
+    xa_w, _, _, warm = sharded_cycle()
+    check(torch.equal(xa_w, xa), "(a) warm run differs from the first")
+    del xa, xa_w
+    print(f"  (a) {smi_line}: warm sharded_update_points_cycle {warm:.3f} s, "
+          f"warm update_points_cycle just before it {single:.3f} s (phase "
+          f"3's {cycle3_s:.3f} s): {warm - single:+.3f} s is the cost of "
+          f"sharding on one card (two shards in turn), not scaling; "
+          f"{b * N_VARS / warm:.1f} var-point updates/s")
+
+    ivars = (0, 1)
+    solver.set_eigh_backend("jacobi")
+    try:
+        budgets = update.plan_max_blocks(pts_d, dplats, ivars[0], chunk=CHUNK,
+                                         n_shards=2)
+        reset_counts()
+        t0 = time.time()
+        xa, diag = sharded_update_points_group(
+            mesh2, xb_d[:, None, :].expand(b, 2, K), pts_d, dplats, ivars,
+            inflats=tuple((K - 1) / MULTI_INFL[iv] for iv in ivars),
+            weight_function=0, rtpp_alpha=(RTPP,) * 2, rtps_alpha=(RTPS,) * 2,
+            chunk=CHUNK, max_blocks=budgets, return_diagnostics=True)
+        torch.cuda.synchronize(dev)
+        print(f"  (b) sharded_update_points_group (U, V), jacobi, two shards: "
+              f"{time.time() - t0:.3f} s, budgets "
+              f"{ {n: tuple(bb) for n, bb in budgets.items()} }, overflow "
+              f"{int(diag['bucket_overflow'])}")
+        counts = read_counts()
+        check_only(counts, "jacobi_parallel", chunks2,
+                   "(b) sharded group update (one per chunk of each shard)")
+    finally:
+        solver.set_eigh_backend("auto")
+    check(int(diag["bucket_overflow"]) == 0, "(b) bucket overflow")
+    check(bool(torch.isfinite(xa).all()), "(b) analysis not finite")
+    check_close(xa, xa8b.to(dev), xb_d[:, None, :],
+                "(b) two shards vs phase 8's (b)")
+    out["jacobi_parallel"]["launches_sharded_group"] = \
+        counts["jacobi_parallel"]
+    del xa
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    torch.cuda.set_device(dev)
+    t0 = time.time()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh()
+        print(f"  (c) NCCL process group, world size {mesh.size}, rank "
+              f"{mesh.rank} on {mesh.devices[0]} ({mesh.kinds[0]}); started "
+              f"in {time.time() - t0:.3f} s")
+        glob = torch.from_numpy(np.random.default_rng(SEED + 15)
+                                .standard_normal((100_003, 3, K))
+                                .astype(np.float32))
+        shards = member_group_to_points(mesh, glob.numpy(), K)
+        back = points_to_member_columns(mesh, shards, K, glob.shape[0])
+        check(len(shards) == 1 and torch.equal(shards[0].cpu(), glob)
+              and np.array_equal(back, glob.numpy()),
+              "(c) member/point transposes do not round trip")
+        print(f"  (c) member_group_to_points -> points_to_member_columns on "
+              f"{list(glob.shape)}: round trip bit for bit")
+
+        k = K
+        cfg = LetkfConfig.from_namelist(str(d9 / "input.nml"))
+        paths = [str(d9 / f"wrfinput_nc_{m + 1:03d}") for m in range(k)]
+        outs = [str(d9 / f"wrfout_dist_{m + 1:03d}") for m in range(k)]
+        t0 = time.time()
+        ens = StreamingWrfEnsemble(paths, cfg, outs,
+                                   members=member_block(k, mesh))
+        init_s = time.time() - t0
+        reset_counts()
+        t0 = time.time()
+        driver.run_analysis(cfg, ens, obs9, mesh=mesh, distributed=True,
+                            chunk=CHUNK, device=dev)
+        torch.cuda.synchronize(dev)
+        run_s = time.time() - t0
+        counts = read_counts()
+        print(f"  (c) run_analysis(mesh, distributed=True) on phase 9's "
+              f"{k} files: streaming ensemble {init_s:.3f} s, run "
+              f"{run_s:.3f} s")
+        check_only(counts, "ns_invsqrt", launches9,
+                   "(c) distributed run (as phase 9's fused run)")
+        out["ns_invsqrt"]["launches_distributed"] = counts["ns_invsqrt"]
+    finally:
+        dist.destroy_process_group()
+    equal, gaps = [], []
+    for m in range(k):
+        got = read_nc(outs[m])
+        want = read_nc(d9 / f"wrfout_d01_{m + 1:03d}")
+        prior = read_nc(paths[m])
+        for name in VAR_UPDATE:
+            if np.array_equal(got[name], want[name]):
+                equal.append(name)
+                continue
+            diff = float(np.abs(got[name] - want[name]).max())
+            incr = float(np.abs(want[name] - prior[name]).max())
+            gaps.append(f"member {m + 1} {name}: {diff:.3e} = "
+                        f"{diff / incr:.3e} of its increment")
+            check(diff <= XA_RTOL * incr, f"(c) {gaps[-1]} > {XA_RTOL}")
+    print(f"  (c) against phase 9's fused analysis: {len(equal)} of "
+          f"{k * len(VAR_UPDATE)} member variables bit for bit"
+          + (f"; the others within {XA_RTOL} of the increment: "
+             + "; ".join(gaps) if gaps else ""))
+
+    h2d = pinned_h2d_bytes_s(dev)
+    model = report(pts_d, dplats, cycle3_s, h2d)
+    pred = model["bench_case"]
+    min_link = pred["link_sensitivity_at_max_hosts"]["min_link_gbs_for_85pct"]
+    min_link = (f"{min_link} GB/s a card" if min_link is not None else
+                "none (the imbalance alone keeps it below)")
+    print(f"  (d) {smi_line}: pinned host-to-device copy {h2d / 1e9:.3f} GB/s "
+          f"(256 MiB, the best of 5, CUDA events)")
+    print("  (d) MODEL, not a measurement (parallel/scaling_model.py; phase "
+          f"3's warm cycle {cycle3_s:.3f} s, the rate above, shard-work "
+          f"imbalance {model['inputs']['imbalance_measured']}): efficiency "
+          "by hosts of 8 cards "
+          + json.dumps({n: v["efficiency"]
+                        for n, v in pred["per_host"].items()})
+          + f"; the least swept link rate for 85% at 8 hosts: {min_link}. "
+          "NCCL at world size > 1 and any multi-card speed are not "
+          "measured.")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2152,7 +2383,7 @@ def main():
             print(f"  {name} at k={k}: {eigh_kernel.config(k)}")
 
     record = {}
-    with torch.inference_mode():
+    with torch.inference_mode(), contextlib.ExitStack() as stack:
         print("phase 2: K1 vs plain")
         entry = phase_kernel(dev, np.random.default_rng(SEED + 1))
 
@@ -2164,8 +2395,9 @@ def main():
               f"{GRID[2]}), k={K}, {N_VARS} variables in {len(PROD_GROUPS)} "
               f"groups, records {[po.nrec for _, po in case[3]]}; built on "
               f"the host in {time.time() - t0:.2f} s")
-        pts_d, xb_d, truth_d, xa_ns, dplats, groups, budgets, launches = \
-            phase_slice(dev, case)
+        pts_d, xb_d, truth_d, xa_ns, dplats, groups, budgets, launches, \
+            cycle3_s = phase_slice(dev, case)
+        xa3 = xa_ns.cpu()            # phase 15's reference, off the card
 
         print("phase 4: K1 on real normal matrices; eigen-solve controls")
         err4, stacks, first = phase_real(pts_d, dplats, groups, budgets)
@@ -2190,12 +2422,15 @@ def main():
         print("phase 8: entries (b) and (c)")
         launches4, xa_b, xa_c, case41 = phase_updates(dev, pts_d, xb_d,
                                                       xa_jac, dplats, GRID[2])
+        xa8b = xa_b.cpu()            # phase 15(b)'s reference
         del xa_jac
         record["jacobi_cyclic"] = {"launches": launches4,
                                    **jac["jacobi_cyclic"]}
 
         print("phase 9: run_analysis on WRF member files")
-        launches9, err9 = phase_driver(dev, smi_line)
+        case9 = stack.enter_context(
+            tempfile.TemporaryDirectory(prefix="chip_smoke_wrf_"))
+        launches9, err9, obs9 = phase_driver(dev, smi_line, root=Path(case9))
         record["ns_invsqrt"]["launches_run_analysis"] = launches9
         record["ns_invsqrt"]["max_abs_err"] = max(
             record["ns_invsqrt"]["max_abs_err"], err9)
@@ -2243,6 +2478,15 @@ def main():
         with tempfile.TemporaryDirectory(prefix="chip_smoke_bd_") as tmp:
             record["jacobi_parallel"]["launches_breakdown"] = \
                 phase_breakdown(dev, pts_d, xb_d, dplats, Path(tmp))
+
+        print("phase 15: the sharded paths (parallel/)")
+        t0 = time.time()
+        sharded = phase_sharded(dev, smi_line, (pts_d, xb_d, dplats, groups),
+                                xa3, cycle3_s, xa8b, Path(case9), obs9,
+                                launches9)
+        record["ns_invsqrt"].update(sharded["ns_invsqrt"])
+        record["jacobi_parallel"].update(sharded["jacobi_parallel"])
+        print(f"  in {time.time() - t0:.1f} s")
     print(f"all phases passed in {time.time() - t_start:.1f} s")
 
     kernels = []

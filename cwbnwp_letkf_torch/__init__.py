@@ -6,3 +6,9 @@ never jax.  Importing the package applies the float32 matmul policy of
 :mod:`.device`.
 """
 from . import device  # noqa: F401
+from .config import LetkfConfig
+from .projection import LambertProjection
+
+__version__ = "0.1.0"
+
+__all__ = ["LetkfConfig", "LambertProjection", "__version__"]

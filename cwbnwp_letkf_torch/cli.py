@@ -22,11 +22,24 @@ reads MD/MK files (framework extension).
 
 The analysis runs on the CUDA card.  ``--platform cpu`` runs it on the CPU
 through the kernels' plain versions, which is for tests; without a card and
-without ``--platform cpu`` the CLI raises before it reads any file.  The
-multi-device update (``--distributed``, or more than one visible card without
-``--no-mesh``) is ROADMAP M11 and raises.  ``--device-breakdown`` adds the
-per-stage device seconds of a sample batch to the run metrics
-(``device_breakdown`` in ``--metrics-json``).
+without ``--platform cpu`` the CLI raises before it reads any file.  With
+more than one visible card and no ``--no-mesh`` the points are sharded over
+an in-process mesh of those cards, whose shards run in turn.
+``--device-breakdown`` adds the per-stage device seconds of a sample batch
+to the run metrics (``device_breakdown`` in ``--metrics-json``).
+
+``--distributed`` runs one process per card under ``torch.distributed``
+(NCCL on cards, gloo with ``--platform cpu``), from torchrun's environment
+or from ``--coordinator``, ``--num-processes`` and ``--process-id``:
+
+    torchrun --nproc-per-node 8 -m cwbnwp_letkf_torch.cli --distributed \
+        --input DIR --output DIR
+
+Each process reads and writes only its member block, the fields cross
+between the member and point layouts by two ``all_to_all`` transposes, and
+process 0 writes the mean and the metrics after a barrier (the reference's
+multi-rank main, cwb_letkf.f90:20-81).  The input and output directories
+must be shared by every process.
 """
 from __future__ import annotations
 
@@ -37,6 +50,7 @@ import sys
 from typing import Dict
 
 import torch
+import torch.distributed as dist
 
 #: ``--platform`` values that select the card; None (no flag) does too
 CUDA_PLATFORMS = ("gpu", "cuda")
@@ -68,9 +82,17 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "default) or 'cpu' (the kernels' plain versions, "
                         "for tests)")
     p.add_argument("--distributed", action="store_true",
-                   help="multi-host mode (not ported yet: ROADMAP M11)")
+                   help="one process per card under torch.distributed "
+                        "(NCCL; gloo with --platform cpu): member-block "
+                        "ingest per process, point-sharded update, "
+                        "per-process member write-back (the reference's "
+                        "multi-rank main, cwb_letkf.f90:20-81; rank->member "
+                        "binding :39-52).  Implies --stream (one group "
+                        "resident); needs a shared filesystem.  The rank, "
+                        "world size and address come from torchrun's "
+                        "environment or the flags below")
     p.add_argument("--coordinator", default=None,
-                   help="coordinator address host:port (distributed)")
+                   help="rank 0's address host:port (distributed)")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
     p.add_argument("--quiet", action="store_true")
@@ -85,13 +107,36 @@ def build_arg_parser() -> argparse.ArgumentParser:
     return p
 
 
+def distributed_settings(args: argparse.Namespace) -> tuple:
+    """``(init_method, rank, world_size, local_rank)`` of ``--distributed``:
+    from ``--coordinator``, ``--num-processes`` and ``--process-id``, else
+    from torchrun's environment; raises if neither is complete."""
+    env = os.environ
+    if args.coordinator:
+        if args.num_processes is None or args.process_id is None:
+            raise ValueError("--coordinator needs --num-processes and "
+                             "--process-id")
+        rank = args.process_id
+        return (f"tcp://{args.coordinator}", rank, args.num_processes,
+                int(env.get("LOCAL_RANK", rank)))
+    if all(key in env for key in ("RANK", "WORLD_SIZE", "MASTER_ADDR",
+                                  "MASTER_PORT")):
+        rank = int(env["RANK"])
+        return ("env://", rank, int(env["WORLD_SIZE"]),
+                int(env.get("LOCAL_RANK", rank)))
+    raise ValueError("--distributed needs torchrun's environment (RANK, "
+                     "WORLD_SIZE, MASTER_ADDR, MASTER_PORT) or --coordinator "
+                     "HOST:PORT with --num-processes and --process-id")
+
+
 def select_device(args: argparse.Namespace) -> torch.device:
     """The device ``args`` asks for; raises for what the port cannot run.
 
-    Called before any file is read, so a refused run reads nothing."""
-    if args.distributed:
-        raise ValueError("--distributed is the multi-host update, which is "
-                         "not ported yet: ROADMAP M11")
+    Called before any file is read, so a refused run reads nothing.  Under
+    ``--distributed`` it binds this process's card (``LOCAL_RANK``, or the
+    process id, modulo the visible cards) before the process group starts.
+    """
+    settings = distributed_settings(args) if args.distributed else None
     if args.platform == "cpu":
         return torch.device("cpu")
     if args.platform is not None and args.platform not in CUDA_PLATFORMS:
@@ -101,17 +146,32 @@ def select_device(args: argparse.Namespace) -> torch.device:
         raise RuntimeError("no CUDA device: the analysis runs on the card; "
                            "pass --platform cpu to run the plain versions "
                            "on the CPU (for tests)")
-    if torch.cuda.device_count() > 1 and not args.no_mesh:
-        raise ValueError(f"{torch.cuda.device_count()} CUDA devices visible: "
-                         "the sharded update is not ported yet (ROADMAP "
-                         "M11); pass --no-mesh to run on one card")
-    return torch.device("cuda")
+    if settings is None:
+        return torch.device("cuda")
+    device = torch.device("cuda", settings[3] % torch.cuda.device_count())
+    torch.cuda.set_device(device)
+    return device
 
 
 def main(argv=None) -> int:
     args = build_arg_parser().parse_args(argv)
     device = select_device(args)
+    if not args.distributed:
+        return _run(args, device, None)
+    init_method, rank, world, _ = distributed_settings(args)
+    # NCCL on the cards, gloo on the CPU; never one for the other
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            init_method=init_method, rank=rank,
+                            world_size=world)
+    try:
+        from .parallel import make_mesh
 
+        return _run(args, device, make_mesh())
+    finally:
+        dist.destroy_process_group()
+
+
+def _run(args: argparse.Namespace, device: torch.device, mesh) -> int:
     from .config import LetkfConfig
     from .driver import StageTimer, run_analysis
     from .metrics import RunMetrics
@@ -119,6 +179,8 @@ def main(argv=None) -> int:
                                write_ensemble, write_mean)
     from .obs.gts import parse_obs_gts, read_gts_ensemble
     from .obs.radar import PREFIX_TO_NAME, read_radar_ensemble
+    from .parallel import make_mesh
+    from .parallel.multihost import member_block
     from .profiling import maybe_trace
     from .projection import LambertProjection
 
@@ -137,7 +199,13 @@ def main(argv=None) -> int:
     wrf_paths = [member("wrfinput_nc", m) for m in range(k)]
     out_paths = [os.path.join(args.output, f"wrfout_nc_{m+1:03d}")
                  for m in range(k)]
-    if args.stream:
+    if args.distributed:
+        # member-block ingest: this process reads and writes only its
+        # members (cwb_letkf.f90:39-52), streaming one group at a time
+        os.makedirs(args.output, exist_ok=True)
+        ens = StreamingWrfEnsemble(wrf_paths, cfg, out_paths,
+                                   members=member_block(k, mesh))
+    elif args.stream:
         os.makedirs(args.output, exist_ok=True)
         ens = StreamingWrfEnsemble(wrf_paths, cfg, out_paths)
     else:
@@ -168,14 +236,29 @@ def main(argv=None) -> int:
                 obs_data[PREFIX_TO_NAME[prefix]] = po
 
     timer.stamp("get into letkf core")
+    if (mesh is None and not args.no_mesh and device.type == "cuda"
+            and torch.cuda.device_count() > 1):
+        mesh = make_mesh()
     with maybe_trace(args.profile_dir):
-        run_analysis(cfg, ens, obs_data, chunk=args.chunk, timer=timer,
-                     metrics=metrics, device_breakdown=args.device_breakdown,
-                     device=device)
+        run_analysis(cfg, ens, obs_data, mesh=mesh, chunk=args.chunk,
+                     timer=timer, metrics=metrics,
+                     device_breakdown=args.device_breakdown,
+                     distributed=args.distributed, device=device)
     timer.stamp("finish letkf core")
 
     os.makedirs(args.output, exist_ok=True)
-    if args.stream:
+    metrics_json = args.metrics_json
+    if args.distributed:
+        # every process's sinks are complete; the mean needs all of them
+        # (shared filesystem): barrier, then process 0 writes it (the
+        # reference's write_mean on one rank, cwb_letkf.f90:68-71)
+        dist.barrier()
+        if mesh.rank != 0:
+            metrics_json = None         # one metrics file per run
+        elif cfg.write_analy_mean:
+            timer.stamp("write analysis mean")
+            ens.write_mean(os.path.join(args.output, "wrfout_nc_mean"))
+    elif args.stream:
         # member analyses were written per group during the cycle; only the
         # optional mean file remains (read back from the sinks, one field
         # resident at a time)
@@ -200,8 +283,8 @@ def main(argv=None) -> int:
             if mean_job is not None:
                 mean_job.result()
     timer.stamp("finish all steps")
-    if args.metrics_json:
-        with open(args.metrics_json, "w") as fh:
+    if metrics_json:
+        with open(metrics_json, "w") as fh:
             fh.write(metrics.to_json() + "\n")
     elif not args.quiet:
         print("metrics:", metrics.to_json())

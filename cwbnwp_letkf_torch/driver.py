@@ -9,8 +9,10 @@ the Q* variables (letkf_core.f90:252-278).  The platforms' statistics are
 prepared once per cycle, since they do not depend on the variable.
 
 The analysis runs on ``device``, the card unless the caller asks for the
-CPU; the ensemble and its files stay on the host.  The multi-device update
-(``mesh``, ``distributed``, ROADMAP M11) is not ported yet and raises.
+CPU; the ensemble and its files stay on the host.  With a ``mesh``
+(:mod:`.parallel`) the points are sharded over its devices; with
+``distributed`` each process holds only its own members and the fields
+cross between the member and point layouts by two transposes.
 """
 from __future__ import annotations
 
@@ -29,7 +31,14 @@ from .obs.base import PlatformObs, platform_statics_from_config
 from .ops.cycle import CycleGroup, plan_cycle_budgets, update_points_cycle
 from .ops.dense import set_accum_precision
 from .ops.solver import tune_q
-from .ops.update import DevicePlatform, prepare_platform, update_points
+from .ops.update import (DevicePlatform, plan_max_blocks, prepare_platform,
+                         update_points)
+from .parallel.mesh import shard_points
+from .parallel.multihost import (member_group_to_points,
+                                 points_to_member_columns)
+from .parallel.update import (sharded_update_points,
+                              sharded_update_points_cycle,
+                              update_points_cycle_shards)
 from .profiling import device_breakdown as _breakdown
 from .projection import LambertProjection
 
@@ -154,16 +163,46 @@ def run_analysis(
     ``device_breakdown`` the fused branch ends with
     :func:`.profiling.device_breakdown` on a sample of the first group's
     points (their analysis), into ``metrics.device_breakdown``.
+
+    ``mesh`` (:func:`.parallel.make_mesh`) shards every update's points over
+    its devices, with budgets planned per shard (``n_shards``); the
+    platforms are prepared on ``device`` and copied to the mesh's devices.
+
+    ``distributed=True`` runs the multi-process pipeline (the reference's
+    multi-rank ``main``, cwb_letkf.f90:20-81) on a mesh over a process
+    group: ``ens`` holds only THIS process's member block
+    (``StreamingWrfEnsemble(members=member_block(k, mesh))``, whose ``k``
+    stays the full ensemble size and whose mean geopotential is global),
+    and every process passes the same obs.  Per point set: local member
+    columns -> the member->point transpose (the reference's
+    ``letkf_scatter_grid`` alltoallv, module_mpi_util.f90:190-267) -> the
+    fused cycle on this process's point shard -> ``tune_q`` on the point
+    layout, where each process holds every member of its points -> the
+    inverse transpose -> this process stores its own members
+    (``letkf_gather_grid``, mpi_util.f90:269-358).  Every process must call
+    it, and they make the same collective calls in the same order.
     """
-    if mesh is not None or distributed:
-        raise ValueError("mesh / distributed=True is the multi-device update, "
-                         "which is not ported yet: ROADMAP M11")
+    k_ens = cfg.nmember
+    if distributed:
+        if mesh is None:
+            raise ValueError("distributed=True requires a global mesh")
+        if not fuse_variables:
+            raise ValueError(
+                "distributed mode supports the fused path only")
+        if getattr(ens, "k", k_ens) != k_ens:
+            raise ValueError(
+                "distributed=True needs an ensemble whose k is the FULL "
+                "member count with a local member block "
+                "(StreamingWrfEnsemble(members=member_block(...)))")
+        if device_breakdown:
+            raise ValueError("device_breakdown samples one process's whole "
+                             "ensemble; distributed=True holds a member "
+                             "block")
     # the names only: both accumulate in full float32 on the port
     set_accum_precision(cfg.accum_precision)
     device = torch.device(device)
     timer = timer or StageTimer(enabled=False)
     metrics = metrics if metrics is not None else RunMetrics()
-    k_ens = cfg.nmember
     proj = LambertProjection.from_config(cfg.projection)
     platforms = prepare_platforms(cfg, obs_data, device)
     for dp in platforms:
@@ -173,6 +212,9 @@ def run_analysis(
     solver_dtype = (torch.float64 if cfg.solver_dtype == "float64"
                     else torch.float32)
     quirk = cfg.replicate_stagger_quirk
+    if mesh is not None:
+        metrics.record_mesh(mesh, ens.nx * ens.ny * ens.nz)
+    n_shards = mesh.size if mesh is not None else 1
 
     z_w = mean_geopotential_height(ens)
     pts_cache: Dict[Tuple[int, int], Tuple[np.ndarray, Tuple[int, int, int]]] = {}
@@ -190,10 +232,10 @@ def run_analysis(
             for ivar, vname, spec in members:
                 timer.stamp(f"update {vname}")
                 pts, (ux, uy, uz) = points_for(spec)
-                xb = ens.load_group([spec], ux, uy, uz)[:, 0, :]
-                xa = update_points(
-                    torch.from_numpy(xb).to(device),
-                    torch.from_numpy(pts).to(device), platforms, ivar,
+                xb = torch.from_numpy(
+                    ens.load_group([spec], ux, uy, uz)[:, 0, :]).to(device)
+                pts_d = torch.from_numpy(pts).to(device)
+                kwargs = dict(
                     inflat=(k_ens - 1) / infl.multi_infl[ivar],
                     weight_function=cfg.weight_function,
                     use_rtpp=bool(infl.use_rtpp[ivar]),
@@ -201,6 +243,15 @@ def run_analysis(
                     use_rtps=bool(infl.use_rtps[ivar]),
                     rtps_alpha=infl.rtps_alpha[ivar],
                     solver_dtype=solver_dtype, chunk=chunk)
+                if mesh is not None:
+                    budgets = plan_max_blocks(
+                        pts_d, platforms, ivar, chunk=chunk,
+                        solver_dtype=solver_dtype, n_shards=n_shards)
+                    xa = sharded_update_points(
+                        mesh, xb, pts_d, platforms, ivar,
+                        max_blocks=budgets or None, **kwargs)
+                else:
+                    xa = update_points(xb, pts_d, platforms, ivar, **kwargs)
                 if spec.tune_q:
                     xa = tune_q(xa)  # letkf_core.f90:252-278
                 ens.store_group([spec], xa.cpu().numpy()[:, None, :],
@@ -235,10 +286,12 @@ def run_analysis(
         pts_d = torch.from_numpy(pts).to(device)
         cgroups = tuple(_cycle_group(members) for members in members_lists)
         budgets = plan_cycle_budgets(pts_d, platforms, cgroups, chunk=chunk,
-                                     solver_dtype=solver_dtype)
+                                     solver_dtype=solver_dtype,
+                                     n_shards=n_shards)
         plans.append(dict(
             members=[mv for members in members_lists for mv in members],
-            groups=cgroups, pts_d=pts_d, dims=dims, budgets=budgets))
+            groups=cgroups, pts_d=pts_d, dims=dims, budgets=budgets,
+            q_shards=shard_points(mesh, pts_d)[0] if distributed else None))
     _sync(device)
     metrics.stage("plan_groups")
 
@@ -251,14 +304,28 @@ def run_analysis(
         specs = [spec for _, _, spec in plan["members"]]
         ux, uy, uz = plan["dims"]
         t0 = time.time()
-        xb_d = torch.from_numpy(
-            ens.load_group(specs, ux, uy, uz)).to(device)      # [B, V, k]
-        load_s = time.time() - t0
-        xa, diag = update_points_cycle(
-            xb_d, plan["pts_d"], platforms, plan["groups"],
-            weight_function=cfg.weight_function, solver_dtype=solver_dtype,
-            chunk=chunk, max_blocks=plan["budgets"] or None,
-            return_diagnostics=True)
+        xb_host = ens.load_group(specs, ux, uy, uz)   # [B, V, k or k_local]
+        kwargs = dict(weight_function=cfg.weight_function,
+                      solver_dtype=solver_dtype, chunk=chunk,
+                      max_blocks=plan["budgets"] or None)
+        if distributed:
+            # this process's member columns -> its point shard, [B/n, V, k]
+            xb = member_group_to_points(mesh, xb_host, k_ens)
+            load_s = time.time() - t0
+            xa, diag = update_points_cycle_shards(
+                mesh, xb, plan["q_shards"], platforms, plan["groups"],
+                **kwargs)
+        else:
+            xb = torch.from_numpy(xb_host).to(device)
+            load_s = time.time() - t0
+            if mesh is not None:
+                xa, diag = sharded_update_points_cycle(
+                    mesh, xb, plan["pts_d"], platforms, plan["groups"],
+                    return_diagnostics=True, **kwargs)
+            else:
+                xa, diag = update_points_cycle(
+                    xb, plan["pts_d"], platforms, plan["groups"],
+                    return_diagnostics=True, **kwargs)
         return xa, diag, load_s, time.time() - t0
 
     def drain(plan, launched):
@@ -268,9 +335,17 @@ def run_analysis(
         names = [v for _, v, _ in members]
         specs = [spec for _, _, spec in members]
         tq = [vi for vi, spec in enumerate(specs) if spec.tune_q]
-        if tq:
-            xa[:, tq] = tune_q(xa[:, tq])  # letkf_core.f90:252-278
-        ens.store_group(specs, xa.cpu().numpy(), *plan["dims"])
+        b = int(plan["pts_d"].shape[0])
+        # tune_q works over the member axis, whole on the point layout: in
+        # the distributed branch it runs before the inverse transpose
+        for x in (xa if distributed else [xa]):
+            if tq:
+                x[:, tq] = tune_q(x[:, tq])  # letkf_core.f90:252-278
+        if distributed:
+            xa_host = points_to_member_columns(mesh, xa, k_ens, b)
+        else:
+            xa_host = xa.cpu().numpy()
+        ens.store_group(specs, xa_host, *plan["dims"])
         overflow = int(diag["bucket_overflow"])
         if overflow:
             # planned budgets make this impossible; reaching it means obs
@@ -282,8 +357,7 @@ def run_analysis(
         # the group's own host seconds, its launch and its drain: the
         # update call may return only once the device is done, so the
         # seconds between the two belong to the next group's launch
-        metrics.add_group(names, int(plan["pts_d"].shape[0]),
-                          launch_s + time.time() - t0,
+        metrics.add_group(names, b, launch_s + time.time() - t0,
                           bucket_overflow=overflow,
                           ns_residual=float(diag["ns_residual"]),
                           load_s=load_s)

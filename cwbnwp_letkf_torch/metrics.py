@@ -17,7 +17,6 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 
-
 @dataclass
 class PlatformMetrics:
     name: str
@@ -64,6 +63,9 @@ class RunMetrics:
     groups: List[GroupMetrics] = field(default_factory=list)
     #: per-stage device seconds on a sample (profiling.device_breakdown)
     device_breakdown: Optional[Dict[str, float]] = None
+    #: the mesh decomposition (the reference's rank->columns ownership dump
+    #: to rsl.out.0000, mpi_util.f90:177-187)
+    mesh_layout: Optional[dict] = None
     _t0: float = field(default_factory=time.time)
     _last: float = field(default_factory=time.time)
 
@@ -93,10 +95,16 @@ class RunMetrics:
                                         load_s))
 
     def record_mesh(self, mesh, n_points: int) -> None:
-        """The device-mesh decomposition (rsl.out.0000 analog) belongs to
-        the multi-device update, which is not ported yet."""
-        raise ValueError("a device mesh is the multi-device update, which "
-                         "is not ported yet: ROADMAP M11")
+        """Record the mesh decomposition of ``n_points`` analysis points
+        (a :class:`..parallel.mesh.Mesh`): its devices, its axis, the
+        points of each shard and the device models."""
+        n = mesh.size
+        self.mesh_layout = {
+            "devices": n,
+            "axes": {str(k): int(v) for k, v in mesh.shape.items()},
+            "points_per_device": -(-int(n_points) // n),
+            "device_kinds": sorted(set(mesh.kinds)),
+        }
 
     @property
     def total_var_points(self) -> int:
@@ -130,6 +138,8 @@ class RunMetrics:
                 self.total_var_points / self.update_wall_s, 1)
             if self.update_wall_s else 0.0,
         }
+        if self.mesh_layout is not None:
+            out["mesh_layout"] = self.mesh_layout
         if self.device_breakdown is not None:
             out["device_breakdown"] = {
                 k: round(float(v), 6) for k, v in self.device_breakdown.items()

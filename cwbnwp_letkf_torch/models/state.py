@@ -260,8 +260,8 @@ def read_ensemble(paths: Sequence[str], cfg: LetkfConfig, *,
     """Read the given members concurrently (the reference's member-parallel
     ingest, cwb_letkf.f90:39-52, one rank per member -> one thread per
     member).  ``allow_subset=True`` permits reading fewer members than
-    ``cfg.nmember``, as the multi-host member-sharded ingest does (the
-    JAX package's ``parallel/multihost.py``; ROADMAP M11)."""
+    ``cfg.nmember``, as the multi-host member-sharded ingest does
+    (``parallel.multihost.read_members_sharded``)."""
     mp = MpScheme.from_option(cfg.wrf_mp_physics, cfg.wrf_mp_hail_opt)
     k = len(paths)
     if not allow_subset and k != cfg.nmember:
@@ -375,7 +375,7 @@ class StreamingWrfEnsemble:
                  out_paths: Sequence[str], *, max_workers: int = 8,
                  members: Optional[slice] = None):
         """``members``: restrict THIS process to a member subset (multi-host
-        composition, ROADMAP M11) — only those members
+        composition, ``parallel.multihost.member_block``) — only those members
         are read by load_group, written by store_group, and get sink files;
         the mean geopotential still averages ALL members (every host reads
         one PH field per member — the vertical coordinate must be the

@@ -39,7 +39,7 @@ from .dense import centered_r2, fused_platform_table, terms_from_r2
 from .neighbors import normalize_coords
 from .solver import check_ensemble_size, letkf_solve_cycle_from_normal
 from .update import (BUCKET_MIN_RECORDS, BucketBudget, DevicePlatform,
-                     dense_table)
+                     dense_table, merge_budgets, point_shards)
 
 
 class CycleGroup(NamedTuple):
@@ -320,6 +320,7 @@ def plan_cycle_budgets(
     method: str = "auto",
     point_order: str = "auto",
     solver_dtype=torch.float32,
+    n_shards: int = 1,
     obs_presorted: bool = False,
 ) -> Dict[str, BucketBudget]:
     """Exact per-platform candidate budgets for the cycle's subchunks.
@@ -330,8 +331,18 @@ def plan_cycle_budgets(
     rounds each budget up to a multiple of 16, so planned budgets never
     overflow.  ``solver_dtype`` is the one the update will take: a full
     blocking of that dtype, if cached, serves the planning.  Builds no
-    table.
+    table.  ``n_shards`` plans each shard of the sharded cycle
+    (``parallel.update.sharded_update_points_cycle``) on its own points and
+    takes the worst shard, as :func:`.update.plan_max_blocks` does.
     """
+    if n_shards > 1:
+        return merge_budgets(
+            plan_cycle_budgets(q_s, platforms, groups, chunk=chunk,
+                               subchunk=subchunk, method=method,
+                               point_order=point_order,
+                               solver_dtype=solver_dtype,
+                               obs_presorted=obs_presorted)
+            for q_s in point_shards(points_xyz, n_shards))
     _check_cycle_options(method, point_order)
     q = points_xyz
     b = q.shape[0]

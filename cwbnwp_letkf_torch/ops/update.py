@@ -18,7 +18,7 @@ import torch
 from ..obs.base import PlatformObs, PlatformStatic
 from .bucketed import (auto_block_size, bucket_platform,
                        bucketed_platform_terms, default_max_blocks, hilbert3,
-                       required_max_blocks)
+                       pad_last, required_max_blocks)
 from .dense import dense_platform_terms, fused_platform_table
 from .neighbors import normalize_coords, radius_neighbors
 from .solver import (check_ensemble_size, letkf_solve_from_normal,
@@ -220,6 +220,27 @@ def _padded_chunks(q, chunk):
     return q_p.view(n_chunks, chunk, 3)
 
 
+def point_shards(q: torch.Tensor, n_shards: int) -> torch.Tensor:
+    """``[n_shards, ceil(B / n_shards), 3]``: the sharded update's split of
+    the points, padded with copies of the last point (inside the last
+    shard's bounding box, so its Hilbert order keeps its resolution)."""
+    b = q.shape[0]
+    per = -(-b // n_shards)
+    return pad_last(q, n_shards * per - b).view(n_shards, per, 3)
+
+
+def merge_budgets(plans) -> dict:
+    """The worst shard's budget per platform; the block size is the same
+    on every shard, since every shard sees all the records."""
+    merged: dict = {}
+    for one in plans:
+        for name, bb in one.items():
+            prev = merged.get(name)
+            merged[name] = bb if prev is None else BucketBudget(
+                bb.block_size, max(prev.max_blocks, bb.max_blocks))
+    return merged
+
+
 def plan_max_blocks(
     points_xyz: torch.Tensor,
     platforms: Sequence[DevicePlatform],
@@ -234,10 +255,22 @@ def plan_max_blocks(
     """Exact per-platform candidate budgets ``{name: BucketBudget}`` for
     :func:`update_points` with the same points, ``chunk``, ``method`` and
     ``point_order``: planned budgets never overflow.  Only the bucketed
-    platforms get one."""
+    platforms get one.
+
+    ``n_shards`` plans for the sharded update (``parallel.update``), which
+    splits the batch, padded with copies of its last point, into
+    ``n_shards`` contiguous shards; each shard Hilbert-orders and chunks its
+    own points, so budgets planned on the whole batch's chunking could
+    undersize a shard's chunk and drop obs with only the overflow count to
+    show for it.  Each shard is planned as the update will run it, and each
+    platform takes the worst shard's budget.
+    """
     if n_shards > 1:
-        raise ValueError("n_shards > 1 plans for the multi-device update, "
-                         "which is not ported yet: ROADMAP M11")
+        return merge_budgets(
+            plan_max_blocks(q_s, platforms, ivar, chunk=chunk, method=method,
+                            point_order=point_order,
+                            solver_dtype=solver_dtype)
+            for q_s in point_shards(points_xyz, n_shards))
     _check_method(method)
     q = points_xyz
     b = q.shape[0]

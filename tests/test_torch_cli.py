@@ -22,7 +22,7 @@ from cwbnwp_letkf_tpu import cli as jcli
 from cwbnwp_letkf_tpu import synthetic_case as jsynthetic
 from cwbnwp_letkf_tpu.ops import dense as jdense
 from cwbnwp_letkf_tpu.ops import solver as jsolver
-from cwbnwp_letkf_torch import cli, config, synthetic_case
+from cwbnwp_letkf_torch import cli, config, driver, synthetic_case
 from cwbnwp_letkf_torch.io import native
 from cwbnwp_letkf_torch.io.netcdf import NetcdfReader
 from cwbnwp_letkf_torch.models import state, vcoord
@@ -35,6 +35,12 @@ XA_RTOL = 5e-4
 BASE_ATOL = {"MU": 0.05, "P": 0.05, "PH": 0.05}
 #: the synthetic cases of tests/test_synthetic_case.py
 SYNTHETIC = {"wf0": dict(seed=5), "wf1": dict(seed=6, weight_function=1)}
+#: a small generate_case input for the tests that stop before the analysis
+SMALL_CASE = dict(k=4, nx=8, ny=6, nz=3, n_obs=10)
+
+
+class _Stop(Exception):
+    """Raised by a stand-in to end a CLI run at the analysis."""
 
 
 def _jax_cli(argv):
@@ -268,16 +274,46 @@ def test_no_card_raises_before_reading(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--distributed"], "M11"),
-    (["--distributed", "--platform", "cpu"], "M11"),
+    (["--distributed"], "torchrun's environment"),
+    (["--distributed", "--platform", "cpu", "--coordinator",
+      "127.0.0.1:1"], "--num-processes and --process-id"),
 ])
-def test_unported_options_raise(tmp_path, argv, match):
+def test_unported_options_raise(tmp_path, monkeypatch, argv, match):
+    """``--distributed`` without a complete rank, world size and address
+    (torchrun's environment or the three flags) is refused before reading;
+    the process group is never started."""
+    for key in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(key, raising=False)
     _refused(argv, ValueError, match, tmp_path)
+    assert not torch.distributed.is_initialized()
 
 
 def test_several_cards_raise_without_no_mesh(tmp_path, monkeypatch):
+    """Several visible cards: no refusal any more; without ``--no-mesh``
+    the CLI shards the points over an in-process mesh of the cards (as the
+    JAX CLI does, cli.py:166-171), with it the update runs on one card."""
+    from cwbnwp_letkf_torch.parallel import mesh as pmesh
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    _refused([], ValueError, "M11", tmp_path)
-    args = cli.build_arg_parser().parse_args(["--no-mesh"])
-    assert cli.select_device(args) == torch.device("cuda")
+    monkeypatch.setattr(pmesh, "device_kind", lambda d: "H100")
+    for argv in ([], ["--no-mesh"]):
+        args = cli.build_arg_parser().parse_args(argv)
+        assert cli.select_device(args) == torch.device("cuda")
+    meshes = []
+
+    def run_analysis(cfg, ens, obs, *, mesh, **kw):
+        meshes.append(mesh)
+        raise _Stop
+
+    monkeypatch.setattr(driver, "run_analysis", run_analysis)
+    input_dir = tmp_path / "in"
+    synthetic_case.generate_case(str(input_dir), **SMALL_CASE)
+    for argv in ([], ["--no-mesh"]):
+        with pytest.raises(_Stop):
+            cli.main(["--input", str(input_dir), "--output",
+                      str(tmp_path / "out"), "--quiet"] + argv)
+    assert meshes[1] is None
+    assert meshes[0].devices == (torch.device("cuda", 0),
+                                 torch.device("cuda", 1))
+    assert meshes[0].group is None

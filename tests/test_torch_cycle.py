@@ -149,13 +149,40 @@ def test_port_imports_without_jax():
         "            'ops.ns_kernel', 'ops.cuda_build', 'driver', 'config', 'projection', 'metrics',\n"
         "            'models.state', 'models.vcoord', 'io.netcdf', 'cli', 'synthetic_case',\n"
         "            'profiling', 'io.native', 'obs.gts', 'obs.radar', 'ops.neighbors',\n"
-        "            'ops.whiten', 'ops.dense', 'constants', 'obs.synthetic'):\n"
+        "            'ops.whiten', 'ops.dense', 'constants', 'obs.synthetic',\n"
+        "            'parallel.mesh', 'parallel.update', 'parallel.multihost',\n"
+        "            'parallel.scaling_model', 'examples.scaling_bench',\n"
+        "            'examples.scaling_model_report'):\n"
         "    assert 'cwbnwp_letkf_torch.' + mod in names, names\n"
         "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=root,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 34
+    assert int(out.stdout.split()[-1]) >= 42
     for path in (root / "cwbnwp_letkf_torch").rglob("*.py"):
         text = path.read_text()
         assert "import jax" not in text and "cwbnwp_letkf_tpu" not in text, path
+
+
+def test_root_exports_without_jax():
+    """The root package's exports (the JAX package's ``__init__.py``), with
+    jax blocked."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['cwbnwp_letkf_tpu'] = None\n"
+        "import cwbnwp_letkf_torch as pkg\n"
+        "from cwbnwp_letkf_torch.config import LetkfConfig\n"
+        "from cwbnwp_letkf_torch.projection import LambertProjection\n"
+        "assert pkg.LetkfConfig is LetkfConfig\n"
+        "assert pkg.LambertProjection is LambertProjection\n"
+        "print(sorted(pkg.__all__), pkg.__version__)\n")
+    root = Path(__file__).resolve().parent.parent
+    out = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    import cwbnwp_letkf_tpu
+
+    assert out.stdout.split() == [
+        "['LambertProjection',", "'LetkfConfig',", "'__version__']",
+        cwbnwp_letkf_tpu.__version__]

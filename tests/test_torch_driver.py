@@ -11,6 +11,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from cwbnwp_letkf_tpu import config as jconfig
 from cwbnwp_letkf_tpu import driver as jdriver
@@ -25,6 +26,8 @@ from cwbnwp_letkf_torch import config, driver, metrics
 from cwbnwp_letkf_torch.io.netcdf import NetcdfReader
 from cwbnwp_letkf_torch.models import state, vcoord
 from cwbnwp_letkf_torch.obs import base
+from cwbnwp_letkf_torch.parallel import make_mesh
+from cwbnwp_letkf_torch.parallel.multihost import member_block
 from cwbnwp_letkf_torch.projection import LambertProjection
 
 from .test_driver import NML
@@ -32,6 +35,7 @@ from .wrf_fixtures import make_wrf_ensemble, make_wrf_member
 
 K = 4
 CHUNK = 128
+CPU = torch.device("cpu")
 #: fields var_update analyzes, and fields nothing updates
 UPDATED = ("t", "p", "qv", "w")
 UNTOUCHED = ("u", "v", "ph", "mu", "psfc", "qr", "qs")
@@ -366,19 +370,74 @@ def test_streaming_matches_eager(case, tmp_path):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(mesh=object()), "M11"),
-    (dict(distributed=True), "M11"),
+    (dict(distributed=True, fuse=False), "fused path only"),
+    (dict(distributed=True), "requires a global mesh"),
     (dict(accum_precision="bf16"), "accum_precision"),
 ])
 def test_refusals(case, kw, match):
-    cfg = case[0]
+    """The JAX package's refusals (its driver.py:146-157): ``distributed=True``
+    without a mesh, and on a mesh without the fused path."""
+    cfg, kw = case[0], dict(kw)
     if "accum_precision" in kw:
-        cfg = cfg.replace(**kw)
-        kw = {}
+        cfg = cfg.replace(accum_precision=kw.pop("accum_precision"))
+    fuse = kw.pop("fuse", True)
+    if not fuse:
+        kw["mesh"] = make_mesh([CPU] * 2)
     with pytest.raises(ValueError, match=match):
-        _port_run(case, cfg, **kw)
-    with pytest.raises(ValueError, match="M11"):
-        metrics.RunMetrics().record_mesh(object(), 1)
+        _port_run(case, cfg, fuse=fuse, **kw)
+
+
+@pytest.mark.parametrize("fuse", [True, False])
+def test_run_analysis_on_a_cpu_mesh(case, fuse):
+    """``run_analysis(mesh=...)`` in both branches: three CPU shards, with
+    per-shard budgets, within the 3e-5 of tests/test_sharding.py of the
+    single-device run; the mesh is recorded in the metrics."""
+    m = metrics.RunMetrics()
+    ens = _port_run(case, fuse=fuse, mesh=make_mesh([CPU] * 3), metrics=m)
+    ref = _port_run(case, fuse=fuse)
+    for key in UPDATED:
+        np.testing.assert_allclose(ens.fields[key], ref.fields[key],
+                                   rtol=3e-5, atol=3e-5, err_msg=key)
+    for key in UNTOUCHED:
+        assert np.array_equal(ens.fields[key], ref.fields[key]), key
+    n_points = ens.nx * ens.ny * ens.nz
+    assert m.to_dict()["mesh_layout"] == {
+        "devices": 3, "axes": {"grid": 3},
+        "points_per_device": -(-n_points // 3), "device_kinds": ["cpu"]}
+    if fuse:
+        assert all(g.bucket_overflow == 0 for g in m.groups)
+
+
+def test_record_mesh_matches_jax():
+    import jax
+
+    from cwbnwp_letkf_tpu import metrics as jmetrics
+    from cwbnwp_letkf_tpu.parallel import make_mesh as jmake_mesh
+
+    for n, n_points in ((8, 1000), (2, 7)):
+        m, jm = metrics.RunMetrics(), jmetrics.RunMetrics()
+        m.record_mesh(make_mesh([CPU] * n), n_points)
+        jm.record_mesh(jmake_mesh(jax.devices()[:n]), n_points)
+        assert m.mesh_layout == jm.mesh_layout
+        assert m.to_dict()["mesh_layout"] == jm.to_dict()["mesh_layout"]
+
+
+def test_distributed_in_process_mesh_equals_sharded(case, tmp_path):
+    """``distributed=True`` on an in-process mesh (one process owns every
+    member, the transposes split and join rows) writes the files of the
+    sharded run on the same mesh, bit for bit."""
+    cfg, _, paths = case[:3]
+    mesh = make_mesh([CPU] * 2)
+    out = {}
+    for dist_ in (False, True):
+        outs = [str(tmp_path / f"{dist_}_{m}") for m in range(K)]
+        ens = state.StreamingWrfEnsemble(
+            paths, cfg, outs, members=member_block(K, mesh))
+        _port_run(case, ens=ens, mesh=mesh, distributed=dist_)
+        out[dist_] = [_read_file(NetcdfReader, p) for p in outs]
+    for m in range(K):
+        for name, arr in out[False][m].items():
+            assert np.array_equal(out[True][m][name], arr), (m, name)
 
 
 def test_accum_precision_names_run_full_float32(case):

@@ -221,11 +221,15 @@ def test_inactive_variable_keeps_background():
 
 
 def test_unported_options_raise(case):
+    """An unknown method is refused; ``n_shards`` (once refused) plans the
+    same platforms, shard by shard (its budgets are held equal to JAX's in
+    tests/test_torch_sharding.py)."""
     pts, xb_v, plats = case
     _, tplats = _both(plats[:1])
     q = torch.from_numpy(pts)
-    with pytest.raises(ValueError, match="M11"):
-        update.plan_max_blocks(q, tplats, 0, n_shards=2)
+    for n_shards in (2, 3):
+        budgets = update.plan_max_blocks(q, tplats, 0, n_shards=n_shards)
+        assert budgets.keys() == update.plan_max_blocks(q, tplats, 0).keys()
     with pytest.raises(ValueError):
         update.update_points(torch.from_numpy(xb_v[:, 0]), q, tplats, 0,
                              inflat=5.0, weight_function=0, method="kdtree")

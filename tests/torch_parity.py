@@ -11,6 +11,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import pytest
 
 K_CYCLE = 12
 
@@ -188,3 +189,16 @@ def assert_k96_sweep_level(jacobi_eigh, device):
                       - torch.eye(96, dtype=torch.float64)).abs().max())
         assert rec < tol * scale, (sweeps, rec / scale)
         assert orth < 1e-5, (sweeps, orth)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for a module's small cases: the test workers
+    share the cores, and many threads spinning over small operations slow
+    every worker down."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
