@@ -125,7 +125,26 @@ Phases, in order; any failure raises and the exit code is not 0:
    9's fused analysis, file by file (bit for bit, or within ``XA_RTOL`` of
    the increment with the gap printed); (d) the pinned host-to-device rate
    and ``scaling_model.predict`` fed with it and phase 3's warm cycle,
-   labelled a model.  NCCL at world size > 1 is not measured.
+   labelled a model.  NCCL at world size > 1 is not measured;
+16. the drives of ``cwbnwp_letkf_torch/examples/`` at their full cases: (a)
+   ``profile_cycle`` on phase 3's case (its six stages: the full cycle, the
+   accumulation, without the cap search, cull and gathers only, the solve,
+   the Newton-Schulz builds; ``PROFILE_REPS`` timed runs each after a warm
+   one), K1 160 launches a run in the full cycle, the solve and the NS
+   stages and none in the three accumulation stages, every stage's result
+   finite, ``terms_from_r2`` restored, K1 against its plain version on the
+   NS stage's first batch, the stage table and its derived split printed
+   beside phase 3's warm cycle; (b) ``profile_groups`` (the UV group: full,
+   accumulation, solve, the solve equal to the full update); (c)
+   ``gpu_drive`` (its checks raise: RMSE near the stations below half,
+   far corner untouched, spread down, reruns bit for bit, the fused group
+   within 1e-3 of the per-variable solves); (d) ``gpu_cli_drive`` (the
+   streaming CLI on its 64x64x16, k=24 case: files written, no overflow,
+   finite groups; its metrics printed); (e) ``run_synthetic_cycle`` (RMSE
+   below the prior's); (f) ``memory_bench`` at its defaults, run as its
+   own command (eager and ``--stream`` children on the card, their peak
+   host RSS and K1 launches).  K1 is counted in each, and no other kernel
+   launches.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after; the launches made to compare a kernel with its plain
@@ -239,6 +258,9 @@ PROD_CHUNK = 2048
 #: the depth cut of phase 13: slabs run until the next would end past this
 #: many seconds of slab runs (at least one slab; the count is printed)
 PROD_BUDGET_S = 45.0
+#: phase 16: timed runs of each profile_cycle stage after its warm run (the
+#: drive's own default is 2; one keeps phase 16 near 150 s)
+PROFILE_REPS = 1
 #: name -> (route, source, the TPU kernel it replaces)
 KERNELS = {
     "ns_invsqrt": ("cuda", "cwbnwp_letkf_torch/csrc/ns_invsqrt.cu",
@@ -2137,6 +2159,113 @@ def phase_breakdown(dev, pts_d, xb_d, dplats, root):
     return counts["jacobi_parallel"]
 
 
+def phase_drives(dev, smi_line, case, cycle3_s, root):
+    """Phase 16: the drives of ``cwbnwp_letkf_torch/examples/``; returns
+    K1's launches by drive and its error against the plain version on the
+    first batch of ``profile_cycle``'s NS stage."""
+    from cwbnwp_letkf_torch.examples import (gpu_cli_drive, gpu_drive,
+                                             memory_bench, profile_cycle,
+                                             profile_groups,
+                                             run_synthetic_cycle)
+    from cwbnwp_letkf_torch.ops import cycle, dense, ns_kernel
+
+    pts_d, xb_d, dplats, groups, budgets = case
+    n_runs = 2 * -(-pts_d.shape[0] // CHUNK)      # K1 launches a cycle run
+    launches = {}
+
+    def only_k1(counts, what, expected=None):
+        print(f"  {what}: kernel launches {counts}")
+        check(counts["ns_invsqrt"] > 0, f"{what}: K1 was not launched")
+        if expected is not None:
+            check(counts["ns_invsqrt"] == expected,
+                  f"{what}: {counts['ns_invsqrt']} K1 launches, expected "
+                  f"{expected}")
+        check(all(n == 0 for key, n in counts.items() if key != "ns_invsqrt"),
+              f"{what}: other kernels launched: {counts}")
+        return counts["ns_invsqrt"]
+
+    t0 = time.time()
+    terms = dense.terms_from_r2
+    reset_counts()
+    rec = profile_cycle.profile(xb_d, pts_d, dplats, groups, budgets=budgets,
+                                reps=PROFILE_REPS)
+    counts = read_counts()
+    check(cycle.terms_from_r2 is terms and dense.terms_from_r2 is terms,
+          "profile_cycle left terms_from_r2 swapped")
+    for name, n in rec["k1_launches"].items():
+        want = n_runs if name in ("full_cycle", "solve_only", "ns_only") else 0
+        check(n == want, f"profile_cycle {name}: {n} K1 launches a run, "
+                         f"expected {want}")
+    launches["profile_cycle"] = only_k1(counts, "(a) profile_cycle",
+                                        3 * n_runs * (1 + PROFILE_REPS))
+    full = rec["full_cycle_s"]
+    print(f"  (a) profile_cycle on {rec['device']}: {rec['points']} points, "
+          f"{rec['n_vars']} variables, k={rec['k']}, best of {PROFILE_REPS} "
+          f"after a warm run (phase 3's warm cycle {cycle3_s:.3f} s)")
+    for name in profile_cycle.STAGES:
+        sec = rec[name + "_s"]
+        print(f"    {name:<12s} {sec:9.4f} s  {sec / full:7.1%} of full_cycle"
+              f"  K1 {rec['k1_launches'][name]} a run")
+    for name, sec in rec["derived"].items():
+        print(f"    derived {name:<20s} {sec:9.4f} s  {sec / full:7.1%}")
+    print("  " + json.dumps(rec))
+    stages = profile_cycle.make_stages(xb_d, pts_d, dplats, groups,
+                                       budgets=budgets)
+    with first_input(ns_kernel) as got:
+        stages["ns_only"]()
+    batch, args = got[0]
+    err = compare_kernel(batch, args[0], f"profile_cycle ns_only first batch "
+                                         f"{list(batch.shape)}")
+    print(f"  (a) in {time.time() - t0:.1f} s")
+
+    t0 = time.time()
+    reset_counts()
+    rec = profile_groups.profile(xb_d, pts_d, dplats)
+    n_chunks = -(-pts_d.shape[0] // profile_groups.CHUNK)
+    launches["profile_groups"] = only_k1(read_counts(), "(b) profile_groups",
+                                         4 * n_chunks)
+    check(rec["solve_equals_full"], "profile_groups: the solve from the "
+                                    "accumulated terms is not the full update")
+    print(f"  (b) {json.dumps(rec)}  ({time.time() - t0:.1f} s)")
+
+    t0 = time.time()
+    reset_counts()
+    report, _ = gpu_drive.main(dev)
+    launches["gpu_drive"] = only_k1(read_counts(), "(c) gpu_drive",
+                                    report["k1_launches"])
+    print(f"  (c) {json.dumps(report)}  ({time.time() - t0:.1f} s)")
+
+    t0 = time.time()
+    reset_counts()
+    metrics = gpu_cli_drive.main()
+    launches["gpu_cli_drive"] = only_k1(read_counts(), "(d) gpu_cli_drive")
+    print(f"  (d) {json.dumps(metrics)}  ({time.time() - t0:.1f} s)")
+
+    t0 = time.time()
+    reset_counts()
+    scores = run_synthetic_cycle.main(str(root / "synthetic_cycle"))
+    launches["run_synthetic_cycle"] = only_k1(read_counts(),
+                                              "(e) run_synthetic_cycle")
+    print(f"  (e) {json.dumps(scores)}  ({time.time() - t0:.1f} s)")
+
+    # the harness in a process of its own, as a user runs it: a child's
+    # ru_maxrss starts from its parent's resident size, which here would be
+    # this script's
+    t0 = time.time()
+    out = subprocess.run(
+        [sys.executable, "-m", memory_bench.__name__],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True)
+    check(out.returncode == 0,
+          f"memory_bench exited {out.returncode}:\n{out.stderr[-4000:]}")
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    for run in result["runs"]:
+        check(run["k1_launches"] > 0 and run["device"] == smi_line,
+              f"memory_bench {run['mode']}: not on the card: {run}")
+    launches["memory_bench"] = sum(r["k1_launches"] for r in result["runs"])
+    print(f"  (f) {json.dumps(result)}  ({time.time() - t0:.1f} s)")
+    return launches, err
+
+
 def free_port():
     """A free TCP port on 127.0.0.1, for a process group's store."""
     import socket
@@ -2486,6 +2615,17 @@ def main():
                                 launches9)
         record["ns_invsqrt"].update(sharded["ns_invsqrt"])
         record["jacobi_parallel"].update(sharded["jacobi_parallel"])
+        print(f"  in {time.time() - t0:.1f} s")
+
+        print("phase 16: the drives (examples/)")
+        t0 = time.time()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_drives_") as tmp:
+            launches16, err16 = phase_drives(
+                dev, smi_line, (pts_d, xb_d, dplats, groups, budgets),
+                cycle3_s, Path(tmp))
+        record["ns_invsqrt"]["launches_drives"] = launches16
+        record["ns_invsqrt"]["max_abs_err"] = max(
+            record["ns_invsqrt"]["max_abs_err"], err16)
         print(f"  in {time.time() - t0:.1f} s")
     print(f"all phases passed in {time.time() - t_start:.1f} s")
 

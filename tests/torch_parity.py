@@ -82,12 +82,12 @@ def to_port(static, obs):
     return from_reference(dataclasses.asdict(static), obs._asdict())
 
 
-def cycle_case(nobs_vr=9000, nx=24, nz=6, k=K_CYCLE):
+def cycle_case(nobs_vr=9000, nx=24, nz=6, k=K_CYCLE, dx_m=50e3):
     """tests/test_cycle.py::_case: synop 300 (dense) and vr (bucketed).
 
     Returns ``(pts, xb_v, [(static, obs)])`` from the JAX package's
-    generators, with ``k`` members; ``xb_v`` ``[B, V, k]`` gives every
-    variable its own field.
+    generators, with ``k`` members and grid spacing ``dx_m``; ``xb_v``
+    ``[B, V, k]`` gives every variable its own field.
     """
     from cwbnwp_letkf_tpu.config import MAX_VARS
     from cwbnwp_letkf_tpu.obs.base import PlatformStatic
@@ -96,7 +96,7 @@ def cycle_case(nobs_vr=9000, nx=24, nz=6, k=K_CYCLE):
                                                 synthetic_gts_platform)
 
     rng = np.random.default_rng(3)
-    pts = idealized_grid(nx, nx, nz, dx_m=50e3)
+    pts = idealized_grid(nx, nx, nz, dx_m=dx_m)
     truth, xb = correlated_ensemble(rng, pts, k, n_bumps=6, length_m=2e5)
 
     def radii(plat):
