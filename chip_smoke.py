@@ -98,10 +98,10 @@ Phases, in order; any failure raises and the exit code is not 0:
 13. the production shape of ``bench.py:548-717``: 450x450x52 points at
    3 km (10,530,000), k=96, 200,000 vr records presorted in Hilbert order,
    planned geometry-only (no table) and run with ``obs_presorted=True`` in
-   slabs of 526,500 points at chunk = subchunk = 2048, as many slabs as
-   ``PROD_BUDGET_S`` allows (the depth cut, at least one): finite, no
-   overflow, converged, K1 once per chunk and against its plain version on
-   the first real ``[2048, 96, 96]`` batch, the first slab equal bit for
+   slabs of 526,500 points at chunk = subchunk = 2048, ``PROD_RUN_SLABS``
+   of them (the depth cut; :func:`prod_slabs`): finite, no overflow,
+   converged, no library solve, K1 once per chunk and against its plain
+   version on the first real ``[2048, 96, 96]`` batch, the first slab equal bit for
    bit to its run with ``obs_presorted=False``; seconds per slab,
    var-point updates/s, K1 seconds and mean steps, peak memory and the
    projection to 20 slabs printed;
@@ -144,7 +144,27 @@ Phases, in order; any failure raises and the exit code is not 0:
    below the prior's); (f) ``memory_bench`` at its defaults, run as its
    own command (eager and ``--stream`` children on the card, their peak
    host RSS and K1 launches).  K1 is counted in each, and no other kernel
-   launches.
+   launches;
+17. large ensembles, the JAX package's whole kernel range and the branches
+   above it: (a) K1/K2 at ``[2048, 128, 128]`` (phase 2's rule; the plain
+   iteration's time is the card's ``torch.matmul`` branch above k = 128),
+   K3 at ``[1024, 128, 128]`` and ``[256, 176, 176]`` and K4 at
+   ``[256, 129, 129]`` and ``[64, 177, 177]`` bit for bit (K4's plain
+   version on the first ``LARGE_PLAIN_BATCH`` matrices), each with its
+   bound, plain and ``torch.linalg.eigh`` times; (b) phase 13's case with
+   128 members, the same ``PROD_RUN_SLABS`` slabs by the same runner (K1
+   once a chunk, no library solve, no overflow, converged, K1 against its
+   plain version on the first real batch, slab
+   1's first chunk against a float64 solve within ``XA_RTOL`` of its
+   increment; seconds a slab, the 20-slab projection, peak memory); (c) the
+   CLI at ``nmember = 128`` on ``generate_case``'s case with
+   ``--device-breakdown`` (K1 in the update, K3 at k = 128 in the
+   breakdown), on the card against the CPU at phase 10(a)'s tolerance; (d)
+   k = 178 under ``"jacobi"`` and k = 192 under ``"auto"`` on a real
+   normal-matrix batch: no kernel launched, ``torch.linalg.eigh`` and the
+   ``torch.matmul`` branch counted in ``solver.LIBRARY_SOLVES``, within
+   ``XA_RTOL`` of a float64 solve.  Each kernel's record gains the phase's
+   measurements (``large_k``), error and launches.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after; the launches made to compare a kernel with its plain
@@ -164,6 +184,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -255,12 +276,48 @@ PROD_CAP = 300
 PROD_SEED = 9
 PROD_SLABS = 20
 PROD_CHUNK = 2048
-#: the depth cut of phase 13: slabs run until the next would end past this
-#: many seconds of slab runs (at least one slab; the count is printed)
-PROD_BUDGET_S = 45.0
+#: the depth cut of phases 13 and 17(b): the slabs run of the 20, the same
+#: count at k=96 and k=128 so that their projections compare (phase 13 ran
+#: slabs for 45 s before phase 17 needed the time)
+PROD_RUN_SLABS = 2
 #: phase 16: timed runs of each profile_cycle stage after its warm run (the
 #: drive's own default is 2; one keeps phase 16 near 150 s)
 PROFILE_REPS = 1
+#: phase 17, large ensembles.  (a) the kernels at the new shapes: K1/K2 at
+#: k=128, their largest k; K3 at 128 and 176 and K4 at 129 and 177, up to the
+#: Jacobi kernels' largest k (the JAX package's Pallas reach)
+LARGE_NS_SHAPES = ((2048, 128),)
+LARGE_JACOBI_SHAPES = {"jacobi_parallel": ((1024, 128), (256, 176)),
+                       "jacobi_cyclic": ((256, 129), (64, 177))}
+#: K4's plain version loops over k (k - 1) / 2 rotations a sweep in Python,
+#: about 0.44 ms each on the card whatever the batch: it is held bit for bit
+#: and timed (once) on the first LARGE_PLAIN_BATCH matrices; K3's plain
+#: version is held on the whole batch and timed on that one run too
+LARGE_PLAIN_BATCH = 8
+#: the polished reconstruction bound at the large shapes, in max|A|: seven
+#: sweeps of the round-robin order leave up to 4.3e-5 at k=176 on these
+#: inputs (48 matrices, the plain version on the CPU), above the 3e-5 of
+#: tests/test_pallas_eigh.py; the kernels equal their plain versions bit for
+#: bit, so this bounds the algorithm at seven sweeps, not the kernels
+LARGE_REC_TOL = REAL_REC_TOL
+#: and the sorted eigenvalues' bound against float64, in max|A| beside the
+#: rtol of 1e-4: seven sweeps at k=177 leave one of phase 17's 64 matrices
+#: 6.9e-2 off (measured on an H100), above the 3e-5 max|A| of
+#: tests/test_pallas_eigh.py; the same bound of the algorithm as above
+LARGE_LAM_ATOL = 1e-3
+#: (b) phase 13's case with LARGE_K members; (c) the CLI on
+#: generate_case's case with LARGE_K members on LARGE_CLI_GRID
+LARGE_K = 128
+LARGE_CLI_GRID = dict(nx=16, ny=14, nz=4, n_obs=30)
+#: (d) the branches above the kernels: (k, backend) on the first
+#: ABOVE_POINTS points of the first chunk of the bench grid's lowest
+#: ABOVE_NZ levels, for the production groups ABOVE_GROUPS (U, V at
+#: inflation 1.6; T, QVAPOR at 1.6 and 1.1): torch.linalg.eigh takes
+#: milliseconds a matrix at these k, so the batch is kept small
+ABOVE = ((178, "jacobi"), (192, "auto"))
+ABOVE_NZ = 2
+ABOVE_POINTS = 512
+ABOVE_GROUPS = (0, 2)
 #: name -> (route, source, the TPU kernel it replaces)
 KERNELS = {
     "ns_invsqrt": ("cuda", "cwbnwp_letkf_torch/csrc/ns_invsqrt.cu",
@@ -383,9 +440,11 @@ def library_eigh_ms(a):
 
 
 def reset_counts():
-    from cwbnwp_letkf_torch.ops import eigh_kernel, ns_kernel
+    """Sets the kernels' launch counts and ``solver.LIBRARY_SOLVES`` to 0."""
+    from cwbnwp_letkf_torch.ops import eigh_kernel, ns_kernel, solver
 
-    for counts in (ns_kernel.LAUNCHES, eigh_kernel.LAUNCHES):
+    for counts in (ns_kernel.LAUNCHES, eigh_kernel.LAUNCHES,
+                   solver.LIBRARY_SOLVES):
         for key in counts:
             counts[key] = 0
 
@@ -399,6 +458,22 @@ def read_counts():
             "ns_invsqrt_rmul": ns_kernel.LAUNCHES["rmul"],
             "jacobi_parallel": eigh_kernel.LAUNCHES["parallel"],
             "jacobi_cyclic": eigh_kernel.LAUNCHES["cyclic"]}
+
+
+def read_library():
+    """Solves of the library branches (``solver.LIBRARY_SOLVES``: the card's
+    ``torch.matmul`` Newton-Schulz iteration above K1's range, and every
+    ``torch.linalg.eigh``) since the last :func:`reset_counts`."""
+    from cwbnwp_letkf_torch.ops import solver
+
+    return dict(solver.LIBRARY_SOLVES)
+
+
+def check_no_library(what):
+    """No library branch took a solve since the last :func:`reset_counts`."""
+    lib = read_library()
+    print(f"  {what}: library solves {lib}")
+    check(not any(lib.values()), f"{what}: library solves {lib}")
 
 
 def check_only(counts, name, expected, what):
@@ -484,15 +559,15 @@ def compare_kernel(a, inflat, label, packing="trio"):
     return dz
 
 
-def phase_kernel(dev, rng, packing="trio"):
-    """Phases 2 and 5: returns the kernel's measured record at the main
-    path's shape (``timed_entry``), the error over both shapes."""
+def phase_kernel(dev, rng, packing="trio", shapes=NS_SHAPES):
+    """Phases 2, 5 and 17(a): returns the kernel's measured record at the
+    first of ``shapes`` (``timed_entry``), the error over all of them."""
     from cwbnwp_letkf_torch.ops import ns_kernel, solver
 
     plain = solver.ns_invsqrt_rmul if packing == "rmul" else solver.ns_invsqrt
     worst = 0.0
     entries = []
-    for b, k in NS_SHAPES:
+    for b, k in shapes:
         inflat = (k - 1) / 1.1
         a = normal_matrices(rng, b, k, dev)
         worst = max(worst, compare_kernel(a, inflat, f"normal [{b},{k},{k}]",
@@ -771,7 +846,8 @@ def reconstruction(lam, v, a):
                  / a64.abs().max())
 
 
-def compare_jacobi(a, label, timed=True, rec_tol=3e-5):
+def compare_jacobi(a, label, timed=True, rec_tol=3e-5, plain_batch=None,
+                   lam_atol=3e-5):
     """K3/K4 against its plain version on one batch; returns ``(max|d|,
     record)``, the record (``timed_entry``, with the bound of seven sweeps and
     the library yardstick) None unless ``timed``.
@@ -781,7 +857,11 @@ def compare_jacobi(a, label, timed=True, rec_tol=3e-5):
     tolerances of
     tests/test_pallas_eigh.py:28-35: ``max|V diag(lam) V^T - A| <= rec_tol
     max|A|`` (3e-5 there), ``max|V^T V - I| <= 1e-5`` and sorted ``lam``
-    against float64 eigenvalues at rtol 1e-4.
+    against float64 eigenvalues at rtol 1e-4 and ``lam_atol max|A|`` (3e-5
+    there).  With ``plain_batch`` the plain version runs once, on the first
+    ``plain_batch`` matrices (all of them if there are fewer), which hold
+    the kernel's output bit for bit and give ``plain_ms`` (CUDA events, one
+    run); without it, on all of them, and ``plain_ms`` is the median of 5.
     """
     from cwbnwp_letkf_torch.ops import eigh_kernel
     from cwbnwp_letkf_torch.ops.jacobi_eigh import (jacobi_cyclic, jacobi_eigh,
@@ -790,8 +870,15 @@ def compare_jacobi(a, label, timed=True, rec_tol=3e-5):
     b, k, _ = a.shape
     name = eigh_kernel.kernel_for(k)
     plain = jacobi_parallel if name == "parallel" else jacobi_cyclic
-    lam, v = eigh_kernel.launch(a)
-    lam_p, v_p = plain(a)
+    lam_all, v_all = eigh_kernel.launch(a)
+    nb = b if plain_batch is None else min(b, plain_batch)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    lam_p, v_p = plain(a[:nb])
+    end.record()
+    end.synchronize()
+    lam, v = lam_all[:nb], v_all[:nb]
     scale = float(a.abs().max())
     d_lam = float((lam - lam_p).abs().max())
     d_v = float((v - v_p).abs().max())
@@ -803,12 +890,15 @@ def compare_jacobi(a, label, timed=True, rec_tol=3e-5):
                  .abs().max())
     ref = torch.linalg.eigvalsh(a64.cpu())
     d_sorted = (torch.sort(lam_w.cpu(), -1).values - ref).abs()
-    sorted_ok = bool((d_sorted <= 1e-4 * ref.abs() + 3e-5 * scale).all())
+    sorted_ok = bool((d_sorted <= 1e-4 * ref.abs() + lam_atol * scale).all())
     print(f"  {label} ({name}): max|dlam| {d_lam:.3e}, max|dV| {d_v:.3e} vs "
-          f"plain; polished: reconstruction {rec:.3e} max|A| (tol "
+          f"plain" + ("" if nb == b else f" on the first {nb} matrices")
+          + f"; polished: reconstruction {rec:.3e} max|A| (tol "
           f"{rec_tol:.0e}), orthogonality {orth:.3e} (tol 1e-5), sorted lam vs f64 "
-          f"max|d| {float(d_sorted.max()):.3e}")
-    check(bool(torch.isfinite(lam).all() and torch.isfinite(v).all()),
+          f"max|d| {float(d_sorted.max()):.3e} = "
+          f"{float(d_sorted.max()) / scale:.3e} max|A| (tol 1e-4 |lam| + "
+          f"{lam_atol:.0e} max|A|)")
+    check(bool(torch.isfinite(lam_all).all() and torch.isfinite(v_all).all()),
           f"{label}: kernel output not finite")
     check(torch.equal(lam, lam_p) and torch.equal(v, v_p),
           f"{label}: kernel and plain differ: max|dlam| {d_lam}, max|dV| {d_v}")
@@ -819,13 +909,19 @@ def compare_jacobi(a, label, timed=True, rec_tol=3e-5):
     if not timed:
         return max(d_lam, d_v), None
     ms = median_ms(lambda: eigh_kernel.launch(a))
-    plain_ms = median_ms(lambda: plain(a))
+    if plain_batch is None:
+        plain_ms, plain_how = median_ms(lambda: plain(a)), "median of 5 warm runs"
+    else:
+        plain_ms = start.elapsed_time(end)
+        plain_how = f"one run at batch {nb}"
     lib_ms, lib_b = library_eigh_ms(a)
     cut = {} if lib_b == b else {"library_batch": lib_b}
+    if plain_batch is not None:
+        cut["plain_batch"] = nb
     entry = timed_entry(max(d_lam, d_v), ms, plain_ms,
                         eigh_kernel.work(name, b, k), lib_ms, **cut)
-    print(f"  [{b},{k},{k}] {name} kernel {ms:.4f} ms  plain {plain_ms:.4f} "
-          f"ms  (median of 5 warm runs, CUDA events); bound "
+    print(f"  [{b},{k},{k}] {name} kernel {ms:.4f} ms (median of 5 warm runs,"
+          f" CUDA events)  plain {plain_ms:.4f} ms ({plain_how}); bound "
           f"{entry['bound_ms']:.4f} ms by {entry['bound_by']}, share of bound "
           f"{entry['share_of_bound']:.3f}; torch.linalg.eigh float32 "
           f"{lib_ms:.4f} ms (median of {LIBRARY_REPS} warm runs"
@@ -1570,6 +1666,36 @@ def check_stream(stream, eager, k, what):
     return worst
 
 
+def hold_cli_files(d, k, updated, what):
+    """The card's output files (``d / "card"``) against the CPU's
+    (``d / "cpu"``) on the inputs in ``d / "in"``: the ``updated`` variables
+    within ``XA_RTOL`` of the CPU's increment over the members, every other
+    variable equal.  Returns the largest gap of each updated variable in
+    units of its increment."""
+    incr = {v: 0.0 for v in updated}
+    for m in range(k):
+        ref = read_nc(d / "cpu" / f"wrfout_nc_{m + 1:03d}")
+        prior = read_nc(d / "in" / f"wrfinput_nc_{m + 1:03d}")
+        for v in updated:
+            incr[v] = max(incr[v], float(np.abs(ref[v] - prior[v]).max()))
+    gaps = {v: 0.0 for v in updated}
+    for name in out_names(k):
+        got, want = read_nc(d / "card" / name), read_nc(d / "cpu" / name)
+        check(set(got) == set(want), f"{what} {name}: variables differ")
+        for v, arr in want.items():
+            if v in updated:
+                check(incr[v] > 0, f"{what} case: {v} not updated")
+                diff = float(np.abs(got[v] - arr).max())
+                gaps[v] = max(gaps[v], diff / incr[v])
+                check(diff <= XA_RTOL * incr[v], f"{what} {name} {v}: "
+                      f"card vs CPU max|dxa| {diff} > {XA_RTOL} x "
+                      f"{incr[v]}")
+            else:
+                check(np.array_equal(got[v], arr),
+                      f"{what} {name} {v}: card differs from CPU")
+    return gaps
+
+
 def phase_cli_synthetic(root):
     """Phase 10(a): the CLI on ``generate_case``'s default case, on the card
     against the CPU, and ``--stream`` against eager on the card."""
@@ -1587,27 +1713,7 @@ def phase_cli_synthetic(root):
     check(counts["ns_invsqrt"] > 0, "synthetic case: K1 not launched")
     wall_cpu, _ = run_cli("--input", d / "in", "--output", d / "cpu",
                           "--quiet", "--platform", "cpu")
-    incr = {v: 0.0 for v in updated}
-    for m in range(k):
-        ref = read_nc(d / "cpu" / f"wrfout_nc_{m + 1:03d}")
-        prior = read_nc(d / "in" / f"wrfinput_nc_{m + 1:03d}")
-        for v in updated:
-            incr[v] = max(incr[v], float(np.abs(ref[v] - prior[v]).max()))
-    gaps = {v: 0.0 for v in updated}
-    for name in out_names(k):
-        got, want = read_nc(d / "card" / name), read_nc(d / "cpu" / name)
-        check(set(got) == set(want), f"synthetic {name}: variables differ")
-        for v, arr in want.items():
-            if v in updated:
-                check(incr[v] > 0, f"synthetic case: {v} not updated")
-                diff = float(np.abs(got[v] - arr).max())
-                gaps[v] = max(gaps[v], diff / incr[v])
-                check(diff <= XA_RTOL * incr[v], f"synthetic {name} {v}: "
-                      f"card vs CPU max|dxa| {diff} > {XA_RTOL} x "
-                      f"{incr[v]}")
-            else:
-                check(np.array_equal(got[v], arr),
-                      f"synthetic {name} {v}: card differs from CPU")
+    gaps = hold_cli_files(d, k, updated, "synthetic")
     scores = score_case(case, str(d / "card"))
     print(f"  card vs CPU ({wall_cpu:.3f} s): max|dxa| in units of the "
           f"CPU increment {gaps}; T RMSE prior {scores['rmse_prior']:.4f} "
@@ -1929,8 +2035,9 @@ def phase_refined(a_obs, g, xb, has, label):
     return counts["ns_invsqrt"]
 
 
-def prod_case(dev):
-    """Phase 13's case on the card: ``(points, xb [B, 96], platform)``."""
+def prod_case(dev, k=PROD_K):
+    """Phase 13's case on the card with ``k`` members (phase 17(b): 128):
+    ``(points, xb [B, k], platform)``."""
     from cwbnwp_letkf_torch.config import MAX_VARS
     from cwbnwp_letkf_torch.obs.base import PlatformObs, PlatformStatic
     from cwbnwp_letkf_torch.obs.synthetic import idealized_grid
@@ -1948,7 +2055,7 @@ def prod_case(dev):
     truth = 290.0 + 5.0 * torch.exp(-(pts_d[:, 0] ** 2 + pts_d[:, 1] ** 2)
                                     / 4e5 ** 2)
     gen = torch.Generator(device=dev).manual_seed(PROD_SEED)
-    xb = truth[:, None] - 2.0 + torch.randn((b, PROD_K), generator=gen,
+    xb = truth[:, None] - 2.0 + torch.randn((b, k), generator=gen,
                                             device=dev)
     gi_d = torch.from_numpy(gi).to(dev)
     oxyz_d = torch.from_numpy(oxyz).to(dev)
@@ -1960,7 +2067,7 @@ def prod_case(dev):
         xyz=oxyz_d[order],
         obs=(truth[gi_d] + torch.from_numpy(noise).to(dev)[order])[None],
         error=torch.ones((1, r), device=dev),
-        qc=torch.zeros((1, r, PROD_K), device=dev), hdxb=xb[gi_d][None])
+        qc=torch.zeros((1, r, k), device=dev), hdxb=xb[gi_d][None])
     st = PlatformStatic(
         name="vr", kind="radar", nvar=1, max_lz_pts=PROD_CAP,
         hclr=(PROD_RADII[0],) * MAX_VARS, vclr=(PROD_RADII[1],) * MAX_VARS,
@@ -1968,127 +2075,140 @@ def prod_case(dev):
     return pts_d, xb, prepare_platform(st, po, device=dev)
 
 
-def phase_prod(dev, smi_line):
-    """Phase 13: the production shape; phase 12 on its first k=96 chunk.
-
-    Returns the K1 launches of the slabs run and K1's ``max|dZ|`` against
-    its plain version on the first real ``[2048, 96, 96]`` batch, and the
-    refined solve's K1 launches."""
+def prod_slabs(dev, smi_line, k):
+    """Phase 13's production case with ``k`` members, ``PROD_RUN_SLABS``
+    slabs through ``update_points_cycle`` (K1 at ``[2048, k, k]``, one
+    launch a chunk, no library branch): finite, no overflow, converged;
+    seconds a slab (the cycle; its plan is printed beside it), the 20-slab
+    projection from the first slab and the mean of the others, peak device
+    memory; K1 against its plain version on the first real batch, and that
+    batch rebuilt by ``accumulate_chunk`` from the first chunk's points.
+    Returns the case and what the callers hold it to."""
     from cwbnwp_letkf_torch.ops import cycle, ns_kernel
 
     t0 = time.time()
-    pts_d, xb, dp = prod_case(dev)
+    pts_d, xb, dp = prod_case(dev, k)
     torch.cuda.synchronize(dev)
     b = pts_d.shape[0]
     slab = -(-b // PROD_SLABS)
-    groups = (cycle.CycleGroup(ivars=(0,), inflats=((PROD_K - 1) / 1.1,),
+    groups = (cycle.CycleGroup(ivars=(0,), inflats=((k - 1) / 1.1,),
                                rtpp_alpha=(RTPP,), rtps_alpha=(RTPS,)),)
     print(f"  case: {b} points ({'x'.join(map(str, PROD_GRID))} at "
-          f"{PROD_DX_M / 1e3:g} km), k={PROD_K}, {PROD_RECORDS} vr records "
+          f"{PROD_DX_M / 1e3:g} km), k={k}, {PROD_RECORDS} vr records "
           f"presorted, cap {PROD_CAP}, {PROD_SLABS} slabs of {slab}; built "
           f"in {time.time() - t0:.2f} s, device memory "
           f"{torch.cuda.memory_allocated(dev) / 2**30:.3f} GiB")
-
-    def plan(si, presorted=True):
-        return cycle.plan_cycle_budgets(
-            pts_d[si * slab:(si + 1) * slab], [dp], groups, chunk=PROD_CHUNK,
-            subchunk=PROD_CHUNK, obs_presorted=presorted)
-
-    def run(si, budgets, presorted=True):
-        rows = slice(si * slab, (si + 1) * slab)
-        return cycle.update_points_cycle(
-            xb[rows, None, :], pts_d[rows], [dp], groups, weight_function=0,
-            chunk=PROD_CHUNK, subchunk=PROD_CHUNK, max_blocks=budgets,
-            obs_presorted=presorted, return_diagnostics=True)
-
     torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.time()
-    budgets0 = plan(0)
-    torch.cuda.synchronize(dev)
-    blockings = [v for v in dp.cache.values()
-                 if isinstance(v, cycle.CycleBlocking)]
-    print(f"  plan (slab 1, geometry only): {time.time() - t0:.3f} s, budgets "
-          f"{ {n: tuple(bb) for n, bb in budgets0.items()} }, device memory "
-          f"{torch.cuda.memory_allocated(dev) / 2**30:.3f} GiB")
-    check(blockings and all(not cb.fused_by_mask for cb in blockings),
-          "planning built a table")
-
     reset_counts()
-    runs, k1_s, expected, ovf, resid = [], 0.0, 0, 0, 0.0
-    loop_t0 = time.time()
-    for si in range(PROD_SLABS):
-        budgets = budgets0 if si == 0 else plan(si)
+    runs, plans_s, k1_s, expected, ovf, resid = [], [], 0.0, 0, 0, 0.0
+    for si in range(PROD_RUN_SLABS):
+        rows = slice(si * slab, (si + 1) * slab)
         n = min(b, (si + 1) * slab) - si * slab
+        t0 = time.time()
+        budgets = cycle.plan_cycle_budgets(
+            pts_d[rows], [dp], groups, chunk=PROD_CHUNK, subchunk=PROD_CHUNK,
+            obs_presorted=True)
+        torch.cuda.synchronize(dev)
+        plans_s.append(time.time() - t0)
+        if si == 0:
+            blockings = [v for v in dp.cache.values()
+                         if isinstance(v, cycle.CycleBlocking)]
+            check(blockings and all(not cb.fused_by_mask for cb in blockings),
+                  f"k={k}: planning built a table")
         t0 = time.time()
         with first_input(ns_kernel) as firsts, \
                 timed_launches(ns_kernel) as events:
-            xa, diag = run(si, budgets)
+            xa, diag = cycle.update_points_cycle(
+                xb[rows, None, :], pts_d[rows], [dp], groups,
+                weight_function=0, chunk=PROD_CHUNK, subchunk=PROD_CHUNK,
+                max_blocks=budgets, obs_presorted=True,
+                return_diagnostics=True)
         torch.cuda.synchronize(dev)
         runs.append(time.time() - t0)
         k1_s += launch_seconds(events)
         expected += -(-n // PROD_CHUNK)
         ovf += int(diag["bucket_overflow"])
         resid = max(resid, float(diag["ns_residual"]))
-        check(bool(torch.isfinite(xa).all()), f"slab {si + 1}: not finite")
+        check(bool(torch.isfinite(xa).all()), f"k={k} slab {si + 1}: not "
+                                              f"finite")
         if si == 0:
-            xa0, first = xa, firsts[0]
+            xa0, first, budgets0 = xa, firsts[0], budgets
         del xa, firsts
-        print(f"  slab {si + 1}: {runs[-1]:.3f} s, {n / runs[-1]:.1f} "
-              f"var-point updates/s")
-        spent = time.time() - loop_t0
-        if spent + spent / (si + 1) > PROD_BUDGET_S:
-            break
-    done = len(runs)
+        print(f"  slab {si + 1}: plan {plans_s[-1]:.3f} s (geometry only), "
+              f"cycle {runs[-1]:.3f} s, {n / runs[-1]:.1f} var-point "
+              f"updates/s")
     counts = read_counts()
-    check(ovf == 0, f"production shape: overflow {ovf}")
-    check(resid <= NS_TOL, f"production shape: ns_residual {resid}")
+    check(ovf == 0, f"k={k} production shape: overflow {ovf}")
+    check(resid <= NS_TOL, f"k={k} production shape: ns_residual {resid}")
     check_only(counts, "ns_invsqrt", expected,
-               f"production shape, {done} slab(s) (one per chunk)")
-    steady = runs[1:] or runs
-    per_slab = sum(steady) / len(steady)
-    print(f"  {smi_line}: {done} of {PROD_SLABS} slabs run (the depth cut: "
-          f"{PROD_BUDGET_S:g} s of slab runs); slab seconds "
-          f"{[round(t, 3) for t in runs]} (the first builds the "
-          f"{PROD_RECORDS} x {PROD_K * (PROD_K + 1)} table); "
-          f"{slab / per_slab:.1f} var-point updates/s a slab after the first;"
-          f" K1 {k1_s:.4f} s in {counts['ns_invsqrt']} launches (CUDA events "
-          f"around each); peak device memory "
+               f"k={k} production shape, {PROD_RUN_SLABS} slabs (one per "
+               f"chunk)")
+    check_no_library(f"k={k} production shape")
+    later = sum(runs[1:]) / len(runs[1:])
+    print(f"  {smi_line}: k={k}, {PROD_RUN_SLABS} of {PROD_SLABS} slabs run "
+          f"(the depth cut); cycle seconds {[round(t, 3) for t in runs]} "
+          f"(the first builds the {PROD_RECORDS} x {k * (k + 1)} table); "
+          f"{slab / later:.1f} var-point updates/s a slab after the first;"
+          f" K1 {k1_s:.4f} s in {counts['ns_invsqrt']} "
+          f"launches (CUDA events around each); peak device memory "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB; projected"
-          f" 20 slabs {runs[0] + (PROD_SLABS - 1) * per_slab:.1f} s")
+          f" 20 slabs {runs[0] + (PROD_SLABS - 1) * later:.1f} s (slab 1 and "
+          f"19 times the mean of the later slabs)")
     stack, (inflat,) = first
-    check(tuple(stack.shape) == (PROD_CHUNK, PROD_K, PROD_K),
+    check(tuple(stack.shape) == (PROD_CHUNK, k, k),
           f"first K1 batch {tuple(stack.shape)}")
     steps = float(ns_kernel.launch(stack, inflat)[1].float().mean())
     print(f"  K1 mean steps on the first batch: {steps:.3f}")
-    err = compare_kernel(stack, inflat, f"production first chunk "
+    err = compare_kernel(stack, inflat, f"k={k} production first chunk "
                          f"{list(stack.shape)}, inflat {inflat:.4f}")
-
-    print("phase 12 (k=96): the refined solves on the first production chunk")
     plans = cycle._resolve_plans([dp], groups, max_blocks=budgets0,
                                  obs_presorted=True)
     rows = cycle._cycle_point_perm(pts_d[:slab], plans)[:PROD_CHUNK]
     a, g, cnt, _ = cycle.accumulate_chunk(
-        pts_d[rows], plans, groups, k=PROD_K, weight_function=0,
+        pts_d[rows], plans, groups, k=k, weight_function=0,
         subchunk=PROD_CHUNK)
     del plans
     check(torch.equal(a[0], stack), "the first chunk's normal matrices are "
                                     "not the first K1 batch")
-    launches12 = phase_refined(a[0], g[0], xb[rows], cnt[0] > 0,
-                               "production first chunk, k=96")
-    del a, g, stack, first
+    return types.SimpleNamespace(
+        pts_d=pts_d, xb=xb, dp=dp, groups=groups, slab=slab,
+        budgets0=budgets0, xa0=xa0, rows=rows, a=a[0], g=g[0],
+        has=cnt[0] > 0, launches=counts["ns_invsqrt"], err=err)
 
-    dp.cache.clear()          # one 7.45 GB table at a time
+
+def phase_prod(dev, smi_line):
+    """Phase 13: the production shape (:func:`prod_slabs` at k=96); phase
+    12 on its first chunk; slab 1 again with ``obs_presorted=False``.
+
+    Returns the K1 launches of the slabs run and K1's ``max|dZ|`` against
+    its plain version on the first real ``[2048, 96, 96]`` batch, and the
+    refined solve's K1 launches."""
+    from cwbnwp_letkf_torch.ops import cycle
+
+    run = prod_slabs(dev, smi_line, PROD_K)
+    print("phase 12 (k=96): the refined solves on the first production chunk")
+    launches12 = phase_refined(run.a, run.g, run.xb[run.rows], run.has,
+                               "production first chunk, k=96")
+
+    run.dp.cache.clear()          # one 7.45 GB table at a time
     t0 = time.time()
-    budgets_s = plan(0, presorted=False)
-    check(budgets_s == budgets0, f"sorted budgets {budgets_s} != {budgets0}")
-    xa_s, _ = run(0, budgets_s, presorted=False)
+    rows = slice(0, run.slab)
+    budgets_s = cycle.plan_cycle_budgets(
+        run.pts_d[rows], [run.dp], run.groups, chunk=PROD_CHUNK,
+        subchunk=PROD_CHUNK, obs_presorted=False)
+    check(budgets_s == run.budgets0,
+          f"sorted budgets {budgets_s} != {run.budgets0}")
+    xa_s = cycle.update_points_cycle(
+        run.xb[rows, None, :], run.pts_d[rows], [run.dp], run.groups,
+        weight_function=0, chunk=PROD_CHUNK, subchunk=PROD_CHUNK,
+        max_blocks=budgets_s, obs_presorted=False)
     torch.cuda.synchronize(dev)
-    check(torch.equal(xa_s, xa0), "slab 1: obs_presorted=False differs from "
-                                  "the presorted run")
+    check(torch.equal(xa_s, run.xa0), "slab 1: obs_presorted=False differs "
+                                      "from the presorted run")
     print(f"  slab 1 with obs_presorted=False (sorts the records, builds "
           f"its own table): {time.time() - t0:.3f} s, equal bit for bit")
-    dp.cache.clear()
-    return counts["ns_invsqrt"], err, launches12
+    run.dp.cache.clear()
+    return run.launches, run.err, launches12
 
 
 def phase_breakdown(dev, pts_d, xb_d, dplats, root):
@@ -2264,6 +2384,213 @@ def phase_drives(dev, smi_line, case, cycle3_s, root):
     launches["memory_bench"] = sum(r["k1_launches"] for r in result["runs"])
     print(f"  (f) {json.dumps(result)}  ({time.time() - t0:.1f} s)")
     return launches, err
+
+
+def phase_large_kernels(dev):
+    """Phase 17(a): every kernel against its plain version at the large
+    shapes; returns ``{kernel: [measured record, ...]}``, one a shape.  K1
+    and K2 by phase 2's rule (their plain ``ns_invsqrt`` is the card's
+    ``torch.matmul`` branch above k = 128, the path K1 would give way to);
+    K3 and K4 bit for bit, with ``LARGE_REC_TOL``, each plain version timed
+    on its one comparison run (K4's on ``LARGE_PLAIN_BATCH`` matrices)."""
+    out = {}
+    for packing, name in (("trio", "ns_invsqrt"), ("rmul", "ns_invsqrt_rmul")):
+        entry = phase_kernel(dev, np.random.default_rng(SEED + 17),
+                             packing=packing, shapes=LARGE_NS_SHAPES)
+        b, k = LARGE_NS_SHAPES[0]
+        entry.update(shape=[b, k, k], matmul_branch_ms=entry["plain_ms"])
+        if packing == "trio":
+            print(f"  the card's torch.matmul branch (solver.ns_route "
+                  f"'matmul', K1's plain version) at [{b},{k},{k}]: "
+                  f"{entry['plain_ms']:.4f} ms against K1's {entry['ms']:.4f}"
+                  f" ms")
+        out[name] = [entry]
+    rng = np.random.default_rng(SEED + 18)
+    for name, shapes in LARGE_JACOBI_SHAPES.items():
+        out[name] = []
+        for b, k in shapes:
+            a = normal_matrices(rng, b, k, dev)
+            a += (k - 1) / 1.6 * torch.eye(k, device=dev)
+            _, entry = compare_jacobi(
+                a, f"[{b},{k},{k}]", rec_tol=LARGE_REC_TOL,
+                lam_atol=LARGE_LAM_ATOL,
+                plain_batch=LARGE_PLAIN_BATCH if name == "jacobi_cyclic"
+                else b)
+            entry["shape"] = [b, k, k]
+            out[name].append(entry)
+    return out
+
+
+def phase_large_prod(dev, smi_line):
+    """Phase 17(b): :func:`prod_slabs` at ``LARGE_K`` members (K1 at
+    ``[2048, 128, 128]``); slab 1's analysis at the first chunk's points
+    against a float64 solve of the same terms within ``XA_RTOL`` of its
+    increment.  Returns K1's launches and its ``max|dZ|``."""
+    from cwbnwp_letkf_torch.ops import solver
+
+    run = prod_slabs(dev, smi_line, LARGE_K)
+    xb_r = run.xb[run.rows][:, None, :]
+    grp = run.groups[0]
+    ref = solver.letkf_solve_group_from_normal(
+        run.a, run.g, xb_r, grp.inflats, run.has, rtpp_alpha=grp.rtpp_alpha,
+        rtps_alpha=grp.rtps_alpha, solver_dtype=torch.float64)
+    check_close(run.xa0[run.rows].double(), ref, xb_r.double(),
+                f"k={LARGE_K} slab 1, first chunk ({int(run.has.sum())} of "
+                f"{PROD_CHUNK} points with obs) against the float64 solve")
+    run.dp.cache.clear()
+    return run.launches, run.err
+
+
+def phase_large_cli(dev, root):
+    """Phase 17(c): the command at ``nmember = LARGE_K``: phase 10(a)'s case
+    builder (``generate_case``) with ``LARGE_K`` members on
+    ``LARGE_CLI_GRID``, the CLI on the card with ``--device-breakdown`` (K1
+    in the update, K3 at k = 128 in the breakdown's eigh stage) against the
+    CLI on the CPU, file by file at phase 10(a)'s tolerance.  Returns the
+    card run's kernel launches."""
+    from cwbnwp_letkf_torch.synthetic_case import generate_case, score_case
+
+    d = root / "large_cli"
+    case = generate_case(str(d / "in"), k=LARGE_K, **LARGE_CLI_GRID)
+    reset_counts()
+    wall, _ = run_cli("--input", d / "in", "--output", d / "card", "--quiet",
+                      "--device-breakdown", "--metrics-json", d / "m.json")
+    counts = read_counts()
+    bd = json.loads((d / "m.json").read_text()).get("device_breakdown")
+    print(f"  generate_case k={case.k}, {case.nx}x{case.ny}x{case.nz}, "
+          f"{len(case.obs_lon)} stations: CLI on the card {wall:.3f} s, kernel "
+          f"launches {counts}; device_breakdown {bd}")
+    check(counts["ns_invsqrt"] > 0, "k=128 CLI: K1 not launched")
+    check(counts["jacobi_parallel"] > 0, "k=128 CLI: K3 not launched in the "
+                                         "breakdown")
+    check(counts["ns_invsqrt_rmul"] == 0 and counts["jacobi_cyclic"] == 0,
+          f"k=128 CLI: other kernels launched: {counts}")
+    check_no_library("k=128 CLI")
+    check(bd is not None, "k=128 CLI: no device_breakdown in the metrics")
+    wall_cpu, _ = run_cli("--input", d / "in", "--output", d / "cpu",
+                          "--quiet", "--platform", "cpu")
+    gaps = hold_cli_files(d, LARGE_K, ("T", "QVAPOR"), "k=128 CLI")
+    scores = score_case(case, str(d / "card"))
+    print(f"  card vs CPU ({wall_cpu:.3f} s): max|dxa| in units of the CPU "
+          f"increment {gaps}; T RMSE prior {scores['rmse_prior']:.4f} -> "
+          f"analysis {scores['rmse_analysis']:.4f}")
+    return counts
+
+
+def phase_above(dev):
+    """Phase 17(d): the branches above the kernels on a real normal-matrix
+    batch, the bench case (its grid's lowest ``ABOVE_NZ`` levels) with ``k``
+    members, the first ``ABOVE_POINTS`` points of its first chunk, for each
+    ``(k, backend)`` of ``ABOVE``: ``letkf_solve_cycle_from_normal`` over
+    the groups ``ABOVE_GROUPS``, no kernel launched, the ``torch.matmul``
+    branch (``"auto"``: one solve a distinct inflation value) or
+    ``torch.linalg.eigh`` (``"jacobi"``: one a group) counted in
+    ``solver.LIBRARY_SOLVES``, the analysis within ``XA_RTOL`` of a float64
+    solve's increment.  Returns the gaps."""
+    from cwbnwp_letkf_torch.ops import cycle, solver, update
+
+    gaps = {}
+    for k, backend in ABOVE:
+        t0 = time.time()
+        pts, _, xb, plats = bench_case(np.random.default_rng(SEED + 19),
+                                       ABOVE_NZ, k=k)
+        pts_d = torch.from_numpy(pts).to(dev)
+        xb_d = torch.from_numpy(xb).to(dev)
+        dplats = [update.prepare_platform(st, po, device=dev)
+                  for st, po in plats]
+        groups = [cycle.CycleGroup(
+            ivars=tuple(ivars),
+            inflats=tuple((k - 1) / MULTI_INFL[iv] for iv in ivars),
+            rtpp_alpha=(RTPP,) * len(ivars), rtps_alpha=(RTPS,) * len(ivars))
+            for ivars, _ in (PROD_GROUPS[gi] for gi in ABOVE_GROUPS)]
+        budgets = cycle.plan_cycle_budgets(pts_d, dplats, groups, chunk=CHUNK,
+                                           subchunk=SUBCHUNK)
+        plans = cycle._resolve_plans(dplats, groups, max_blocks=budgets)
+        rows = cycle._cycle_point_perm(pts_d, plans)[:ABOVE_POINTS]
+        a, g, cnt, ovf = cycle.accumulate_chunk(
+            pts_d[rows], plans, groups, k=k, weight_function=0,
+            subchunk=SUBCHUNK)
+        del plans, dplats
+        check(int(ovf) == 0, f"k={k}: overflow in the first chunk")
+        n = rows.shape[0]
+        xb_gs = [xb_d[rows][:, None, :].expand(n, len(grp.ivars), k)
+                 for grp in groups]
+        args = ([a[gi] for gi in range(len(groups))],
+                [g[gi] for gi in range(len(groups))], xb_gs,
+                [grp.inflats for grp in groups],
+                [cnt[gi] > 0 for gi in range(len(groups))])
+        kw = dict(rtpp_alpha_groups=[grp.rtpp_alpha for grp in groups],
+                  rtps_alpha_groups=[grp.rtps_alpha for grp in groups])
+        solver.set_eigh_backend(backend)
+        try:
+            routes = (solver.ns_route(k, dev),
+                      solver.eigh_route(k, dev, torch.float32))
+            reset_counts()
+            outs, diag = solver.letkf_solve_cycle_from_normal(
+                *args, return_diagnostics=True, **kw)
+            counts = read_counts()
+            lib = read_library()
+        finally:
+            solver.set_eigh_backend("auto")
+        if backend == "auto":
+            want = {"ns_matmul": len({v for grp in groups
+                                      for v in grp.inflats}),
+                    "linalg_eigh": 0}
+        else:
+            want = {"ns_matmul": 0, "linalg_eigh": len(groups)}
+        print(f"  k={k}, '{backend}': routes (ns, eigh) {routes}, "
+              f"{n} points of the bench grid, kernel launches {counts}, "
+              f"library solves {lib} (built and accumulated in "
+              f"{time.time() - t0:.2f} s)")
+        check(all(n == 0 for n in counts.values()),
+              f"k={k}: kernels launched above their range: {counts}")
+        check(lib == want, f"k={k}, {backend}: library solves {lib}, "
+                           f"expected {want}")
+        check(float(diag["ns_residual"]) <= NS_TOL,
+              f"k={k}: ns_residual {float(diag['ns_residual'])}")
+        refs = solver.letkf_solve_cycle_from_normal(
+            *args, solver_dtype=torch.float64, **kw)
+        got = torch.cat([o.reshape(n, -1) for o in outs], 1).double()
+        ref = torch.cat([r.reshape(n, -1) for r in refs], 1)
+        xb_all = torch.cat([x.reshape(n, -1) for x in xb_gs], 1).double()
+        gaps[k] = check_close(got, ref, xb_all, f"k={k}, '{backend}', "
+                              f"{len(groups)} groups against the float64 "
+                              f"solve")
+        del a, g, cnt, outs, refs, got, ref, xb_all, xb_gs, args
+    return gaps
+
+
+def phase_large(dev, smi_line, root):
+    """Phase 17: large ensembles, (a)-(d); returns ``{kernel: keys}`` for the
+    kernel record: each kernel's large-shape measurements, the largest
+    error against its plain version there, and its launches on the k = 128
+    paths."""
+    t_all = time.time()
+    t0 = time.time()
+    timed = phase_large_kernels(dev)
+    print(f"  (a) in {time.time() - t0:.1f} s")
+    t0 = time.time()
+    launches_prod, err_prod = phase_large_prod(dev, smi_line)
+    print(f"  (b) in {time.time() - t0:.1f} s")
+    t0 = time.time()
+    cli_counts = phase_large_cli(dev, root)
+    print(f"  (c) in {time.time() - t0:.1f} s")
+    t0 = time.time()
+    phase_above(dev)
+    print(f"  (d) in {time.time() - t0:.1f} s")
+    out = {}
+    for name, entries in timed.items():
+        err = max(e["max_abs_err"] for e in entries)
+        if name == "ns_invsqrt":
+            err = max(err, err_prod)
+        out[name] = {"large_k": entries, "max_abs_err_large_k": err,
+                     "launches_large_k": {}}
+    out["ns_invsqrt"]["launches_large_k"] = {
+        "prod_shape_k128": launches_prod, "cli_k128": cli_counts["ns_invsqrt"]}
+    out["jacobi_parallel"]["launches_large_k"] = {
+        "cli_breakdown_k128": cli_counts["jacobi_parallel"]}
+    print(f"  phase 17 in {time.time() - t_all:.1f} s")
+    return out
 
 
 def free_port():
@@ -2503,13 +2830,14 @@ def main():
     for lib in libs:
         print("  " + lib.with_suffix(".log").read_text().strip()
               .replace("\n", "\n  "))
-    for _, k in NS_SHAPES:
+    for _, k in NS_SHAPES + LARGE_NS_SHAPES:
         for packing in ns_kernel.LAUNCHES:
             print(f"  ns_invsqrt {packing} at k={k}: "
                   f"{ns_kernel.config(k, packing)}")
-    for name, shapes in JACOBI_SHAPES.items():
-        for _, k in shapes:
-            print(f"  {name} at k={k}: {eigh_kernel.config(k)}")
+    for shapes in (JACOBI_SHAPES, LARGE_JACOBI_SHAPES):
+        for name, pairs in shapes.items():
+            for _, k in pairs:
+                print(f"  {name} at k={k}: {eigh_kernel.config(k)}")
 
     record = {}
     with torch.inference_mode(), contextlib.ExitStack() as stack:
@@ -2627,6 +2955,14 @@ def main():
         record["ns_invsqrt"]["max_abs_err"] = max(
             record["ns_invsqrt"]["max_abs_err"], err16)
         print(f"  in {time.time() - t0:.1f} s")
+
+        print("phase 17: large ensembles")
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_large_") as tmp:
+            large = phase_large(dev, smi_line, Path(tmp))
+        for name, keys in large.items():
+            record[name].update(keys)
+            record[name]["max_abs_err"] = max(record[name]["max_abs_err"],
+                                              keys["max_abs_err_large_k"])
     print(f"all phases passed in {time.time() - t_start:.1f} s")
 
     kernels = []

@@ -30,7 +30,8 @@
 // What bounds it on this card: a step costs 3 k^3 FMAs per matrix, while the
 // whole solve moves 8 k^2 bytes of device memory (A in, Z out).  The bound is
 // the FP32 FMA rate of the CUDA cores (67 TFLOP/s on an H100 SXM: 0.35 ms for
-// [12288, 40, 40] and 0.81 ms for [2048, 96, 96] at 5 steps), never HBM.  A
+// [12288, 40, 40], 0.81 ms for [2048, 96, 96] and 1.92 ms for
+// [2048, 128, 128] at 5 steps), never HBM.  A
 // scheduler starts one instruction a clock, so the FMA rate is reached only
 // by a stream that is all FMAs, from at least two warps per scheduler (one
 // warp starts an FMA every other clock).  The design spends as few other
@@ -38,15 +39,20 @@
 // can, and keeps the warp count a multiple of the four schedulers:
 //   - one thread block per matrix; W, Z and one product buffer P live in
 //     shared memory, zero padded to whole tiles (3 x 96 x 96 floats = 111 KB
-//     at k = 96; the launch opts in to dynamic shared memory above 48 KB);
+//     at k = 96, 3 x 128 x 128 floats = 192 KB at k = 128, the largest k
+//     whose three buffers fit the 227 KB a block may opt in to; the launch
+//     opts in to dynamic shared memory above 48 KB);
 //   - T is never stored: T X = 1.5 X - 0.5 W X and X T = 1.5 X - 0.5 X W,
 //     and zero padding in W and X stays exactly zero through every product;
 //   - each thread owns a TM x 4 register tile of the output: per four values
 //     of the inner index it loads TM float4 of the left operand and 4 float4
 //     of the right one for 16 TM FMAs.  TM = 8 up to k = 80 (two warps at
-//     k = 40), TM = 6 above: k = 96 is then 16 x 24 tiles on 12 whole warps,
-//     three per scheduler, where 8-row tiles fill 9 warps and leave one
-//     scheduler with a third more work than the others;
+//     k = 40), TM = 6 from 81 to 96: k = 96 is then 16 x 24 tiles on 12
+//     whole warps, three per scheduler, where 8-row tiles fill 9 warps and
+//     leave one scheduler with a third more work than the others.  From 97
+//     to 128, TM = 8 again: k = 128 is 16 x 32 tiles on 16 warps, four per
+//     scheduler, and 6-row tiles would take 22 warps at 93 registers a
+//     thread, fewer than the two tiles of stage 2 need;
 //   - a step is two stages.  Stage 1 writes P = T W (= W T).  Stage 2 forms
 //     the new Z and the new W together, since they share an operand (W on
 //     the left for trio, W on the right for rmul): that operand is loaded
@@ -67,13 +73,18 @@
 //     matrix spends about a tenth of its time outside the steps at 5 steps;
 //   - at k = 40 and k = 96, the ensemble sizes of the bench case and of the
 //     production namelist, the tile counts are template constants: shared
-//     memory offsets become immediates and the loop is 128 FMAs, 12 loads
-//     and 6 other instructions;
+//     memory offsets become immediates and the loop is 128 FMAs, 12 loads and
+//     6 other instructions; any other k, k = 97-128 included, reads them at
+//     run time, which costs a multiplication per address (examples/
+//     layout_ab.py times k = 128 as a constant against it);
 //   - plain FP32 FMA on the CUDA cores, each output element summed over the
 //     inner index in order: no tensor cores, no TF32.
 // Registers (up to 165 a thread, no spills) hold 6 blocks of 64 threads on an
-// SM at k = 40 and one block of 384 threads at k = 96; ns_invsqrt_config
-// reports them for a given k.
+// SM at k = 40 and one block of 384 threads at k = 96; at k = 128 shared
+// memory holds one block of 512 threads, whose launch bound caps a thread at
+// 128 registers, and ptxas spills 64-92 bytes a thread (97 <= k <= 128:
+// the two register tiles of stage 2 and the addresses do not all fit).
+// ns_invsqrt_config reports them for a given k.
 #include <cuda_runtime.h>
 
 #include <cfloat>
@@ -81,10 +92,14 @@
 
 namespace {
 
-constexpr int kMaxK = 96;
-constexpr int kWideK = 80;  // up to here 8-row tiles, above 6-row tiles
-constexpr int kMaxTiles = (kMaxK / 4) * kMaxK;  // output floats / 4 at k = 96
-constexpr int kRedFloats = 16;  // per-warp maxima: at most 12 warps
+constexpr int kMaxK = 128;
+constexpr int kWideK = 80;    // 8-row tiles up to here, 6-row tiles to kMidK
+constexpr int kMidK = 96;     // 8-row tiles again above here
+// tiles (output floats / 4) at k = 96 and 128: a launch bound of
+// kTiles96 / TM threads up to k = 96 (288 and 384), kTiles128 / 8 = 512 above
+constexpr int kTiles96 = (kMidK / 4) * kMidK;
+constexpr int kTiles128 = (kMaxK / 4) * kMaxK;
+constexpr int kRedFloats = 16;  // per-warp maxima: at most 16 warps
 
 // Max that keeps a NaN, so a diverged matrix cannot report convergence.
 __device__ __forceinline__ float max_nan(float a, float b) {
@@ -263,9 +278,10 @@ __device__ __forceinline__ float tile_resid(const float (&t)[TM][4], int ti, int
 // One block per matrix; nti x ntj tiles of TM x 4, one per thread (threads
 // beyond the tiles only take part in the barriers and the matrix passes).
 // Shared memory: W, Z, P of rows x 4 ntj floats each, then kRedFloats.  kNti
-// and kNtj, where not 0, are the tile counts as constants.
-template <int TM, bool kRmul, int kNti, int kNtj>
-__global__ void __launch_bounds__(kMaxTiles / TM)
+// and kNtj, where not 0, are the tile counts as constants; kThreads is the
+// most threads a launch of the instance has.
+template <int TM, bool kRmul, int kNti, int kNtj, int kThreads>
+__global__ void __launch_bounds__(kThreads)
 ns_invsqrt_kernel(const float* __restrict__ a, float* __restrict__ z_out,
                   int* __restrict__ iters_out, float* __restrict__ resid_out, int k, int nti_arg,
                   int ntj_arg, float inflat, float tol, int max_iters) {
@@ -486,16 +502,26 @@ struct Plan {
 };
 
 Plan plan_for(int k, int rmul) {
+  constexpr int kT8 = kTiles96 / 8;
+  constexpr int kT6 = kTiles96 / 6;
+  constexpr int kT128 = kTiles128 / 8;
   Plan pl;
-  const int tm = k <= kWideK ? 8 : 6;
+  const int tm = k <= kWideK || k > kMidK ? 8 : 6;
   if (k == 40) {  // the bench case's ensemble
-    pl.kernel = rmul ? ns_invsqrt_kernel<8, true, 5, 10> : ns_invsqrt_kernel<8, false, 5, 10>;
+    pl.kernel = rmul ? ns_invsqrt_kernel<8, true, 5, 10, kT8>
+                     : ns_invsqrt_kernel<8, false, 5, 10, kT8>;
   } else if (k == 96) {  // the production namelist's ensemble
-    pl.kernel = rmul ? ns_invsqrt_kernel<6, true, 16, 24> : ns_invsqrt_kernel<6, false, 16, 24>;
+    pl.kernel = rmul ? ns_invsqrt_kernel<6, true, 16, 24, kT6>
+                     : ns_invsqrt_kernel<6, false, 16, 24, kT6>;
+  } else if (k > kMidK) {
+    pl.kernel = rmul ? ns_invsqrt_kernel<8, true, 0, 0, kT128>
+                     : ns_invsqrt_kernel<8, false, 0, 0, kT128>;
   } else if (tm == 6) {
-    pl.kernel = rmul ? ns_invsqrt_kernel<6, true, 0, 0> : ns_invsqrt_kernel<6, false, 0, 0>;
+    pl.kernel = rmul ? ns_invsqrt_kernel<6, true, 0, 0, kT6>
+                     : ns_invsqrt_kernel<6, false, 0, 0, kT6>;
   } else {
-    pl.kernel = rmul ? ns_invsqrt_kernel<8, true, 0, 0> : ns_invsqrt_kernel<8, false, 0, 0>;
+    pl.kernel = rmul ? ns_invsqrt_kernel<8, true, 0, 0, kT8>
+                     : ns_invsqrt_kernel<8, false, 0, 0, kT8>;
   }
   pl.tm = tm;
   pl.nti = (k + tm - 1) / tm;

@@ -157,9 +157,11 @@ def run_analysis(
     compute only as far as g's update returns before the device finishes
     it.
 
-    Runs on ``device`` (the card by default; the CPU only when asked).  A
-    float32 solve of more than 96 members on a card is refused by the
-    update functions (``solver.check_ensemble_size``).  With
+    Runs on ``device`` (the card by default; the CPU only when asked).
+    Every ensemble size runs: on a card the float32 solves take K1 up to
+    128 members and the batched ``torch.matmul`` iteration above, and the
+    eigen factors K3/K4 up to 177 and ``torch.linalg.eigh`` above
+    (``solver.ns_route``, ``solver.eigh_route``).  With
     ``device_breakdown`` the fused branch ends with
     :func:`.profiling.device_breakdown` on a sample of the first group's
     points (their analysis), into ``metrics.device_breakdown``.

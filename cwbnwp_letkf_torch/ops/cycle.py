@@ -37,7 +37,7 @@ from .bucketed import (auto_block_size, default_max_blocks, hilbert3,
                        hilbert_blocks, pad_last, required_max_blocks, sq_norm3)
 from .dense import centered_r2, fused_platform_table, terms_from_r2
 from .neighbors import normalize_coords
-from .solver import check_ensemble_size, letkf_solve_cycle_from_normal
+from .solver import letkf_solve_cycle_from_normal
 from .update import (BUCKET_MIN_RECORDS, BucketBudget, DevicePlatform,
                      dense_table, merge_budgets, point_shards)
 
@@ -467,7 +467,6 @@ def update_points_cycle(
     """
     q = points_xyz
     b, v_tot, k = xb.shape
-    check_ensemble_size(k, xb.device, solver_dtype)
     _check_cycle_options(method, point_order)
     if q.shape != (b, 3):
         raise ValueError(f"points_xyz must be [{b}, 3], got {tuple(q.shape)}")

@@ -49,7 +49,8 @@ def set_accum_precision(name: str) -> None:
 
 
 #: rows per slice of the table build: bounds the einsum's transient to one
-#: slice (the table at the k=96 production radar volume is ~7 GB)
+#: slice (the table at the production radar volume is ~7 GB at k=96 and
+#: ~13 GB at k=128; a slice ~1.1 GB at k=128)
 _TABLE_ROW_SLICE = 16384
 
 

@@ -1,14 +1,17 @@
 """Launch the CUDA Jacobi eigensolvers (``csrc/jacobi_eigh.cu``).
 
-Two kernels, A and V in shared memory:
+Two kernels, A and V in shared memory (V in the output, in device memory,
+where the two do not fit one block's shared memory: K3 at k >= 172, K4 at
+k >= 171):
 
 - ``"parallel"`` (K3, even k >= 4): the Brent-Luk round-robin order, a warp
-  per matrix (one block per matrix at k = 96), the pairing by the closed
-  form of :func:`ring_pairing`; plain version
-  :func:`cwbnwp_letkf_torch.ops.jacobi_eigh.jacobi_parallel`;
+  per matrix up to k = 96 (one block of 256 threads per matrix at k = 96,
+  of 512 above), the pairing by the closed form of :func:`ring_pairing`;
+  plain version :func:`cwbnwp_letkf_torch.ops.jacobi_eigh.jacobi_parallel`;
 - ``"cyclic"`` (K4, odd k or k < 4): the sequential cyclic-by-row order,
   16 lanes per matrix at k = 41 (two matrices a warp) and a warp per matrix
-  at any other k, up to four warps a block; each lane keeps A's row and
+  at any other k, up to four warps a block (one warp a block above
+  k = 96); each lane keeps A's row and
   column p, V's column p and A's diagonal at the indices it owns in
   registers, computes each rotation's 2x2 itself from entries shuffled
   ahead from their owner, and ends each rotation with one ``__syncwarp``;
@@ -29,9 +32,11 @@ from . import cuda_build
 #: kernel launches per kernel since import (or since a caller reset them)
 LAUNCHES = {"parallel": 0, "cyclic": 0}
 
-#: largest ensemble size the kernels take (A and V must fit one block's
-#: shared memory)
-MAX_K = 96
+#: largest ensemble size the kernels take: the JAX package's Pallas reach
+#: (``pallas_eigh.jacobi_vmem_bytes(k) <= VMEM_BUDGET_BYTES``, a TPU core's
+#: VMEM budget, holds through k=177), not a property of this card; above it
+#: ``solver`` takes ``torch.linalg.eigh``, as the JAX package takes XLA eigh
+MAX_K = 177
 
 SOURCE = cuda_build.CSRC / "jacobi_eigh.cu"
 
@@ -88,17 +93,18 @@ def config(k: int) -> dict:
     """What a launch at ensemble size ``k`` uses on the current card, for
     the kernel :func:`kernel_for` picks: ``threads`` and ``matrices`` per
     block, dynamic ``smem_bytes``, ``registers`` per thread, resident
-    ``blocks_per_sm`` and ``matrices_per_sm``.  Builds the library if need
-    be; launches nothing."""
+    ``blocks_per_sm`` and ``matrices_per_sm``, and ``v_in_device_memory``
+    (1 where V lives in the output).  Builds the library if need be;
+    launches nothing."""
     fn = cuda_build.load(SOURCE).jacobi_config
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    out = (ctypes.c_int * 5)()
+    out = (ctypes.c_int * 6)()
     rc = fn(int(kernel_for(k) == "cyclic"), int(k), out)
     if rc != 0:
         raise RuntimeError(f"jacobi_config failed: CUDA error {rc}")
     cfg = dict(zip(("threads", "smem_bytes", "registers", "matrices",
-                    "blocks_per_sm"), out))
+                    "blocks_per_sm", "v_in_device_memory"), out))
     cfg["matrices_per_sm"] = cfg["matrices"] * cfg["blocks_per_sm"]
     return cfg
 

@@ -26,10 +26,13 @@ from . import cuda_build
 #: kernel launches per packing since import (or since a caller reset them)
 LAUNCHES = {"trio": 0, "rmul": 0}
 
-#: largest ensemble size the kernel takes (a block's three padded k x k
-#: fp32 buffers must fit an SM's shared memory; at k=96 one block is
-#: resident per SM, as ``config(96)["blocks_per_sm"]`` reports)
-MAX_K = 96
+#: largest ensemble size the kernel takes: a block's three padded k x k
+#: fp32 buffers (192 KB at k=128) must fit the shared memory one block may
+#: opt in to, 227 KB on an H100; one block is resident per SM from k=96 up,
+#: as ``config(k)["blocks_per_sm"]`` reports.  Above it ``solver._ns_z``
+#: takes the batched ``torch.matmul`` iteration, as the JAX package takes
+#: XLA above its kernel's range
+MAX_K = 128
 
 SOURCE = cuda_build.CSRC / "ns_invsqrt.cu"
 

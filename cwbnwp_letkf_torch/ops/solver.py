@@ -10,12 +10,18 @@ followed by RTPP / RTPS relaxation; points without obs keep the background.
 Two ways to the inverse factors, chosen by :func:`set_eigh_backend`:
 
 - Newton-Schulz: ``Z = A^(-1/2)``, then ``u = Z xb'``, ``s = (Z g) . u``;
-  the hand-written CUDA kernel (:mod:`.ns_kernel`) for tensors on a card,
-  its plain version :func:`ns_invsqrt` for tensors on the CPU.  Float32 only.
+  the hand-written CUDA kernel (:mod:`.ns_kernel`) for tensors on a card up
+  to ``ns_kernel.MAX_K`` members, above it the batched ``torch.matmul``
+  iteration (the JAX package's XLA branch), and its plain version
+  :func:`ns_invsqrt` for tensors on the CPU.  Float32 only.
 - an eigendecomposition ``A = V diag(lam) V^T``: ``torch.linalg.eigh``
-  (``"xla"``, every float64 solve, and the CPU's eigen factors) or the
-  Jacobi eigensolvers (``"jacobi"``, and the card's eigen factors under
-  ``"auto"``; :mod:`.jacobi_eigh`).
+  (``"xla"``, every float64 solve, the CPU's eigen factors and every k
+  above ``eigh_kernel.MAX_K``) or the Jacobi eigensolvers (``"jacobi"``,
+  and the card's eigen factors under ``"auto"``; :mod:`.jacobi_eigh`).
+
+:func:`ns_route` and :func:`eigh_route` name the branch a solve takes, from
+k, the device, the dtype and the backend alone, before any launch.  A
+kernel that fails raises; no branch stands in for another.
 
 Every solve takes ``solver_dtype`` float32 or float64;
 :func:`letkf_solve_group_refined` takes the float32 ``Z`` to float64 by one
@@ -115,20 +121,26 @@ def set_eigh_backend(name: str):
     """Select the ensemble-space factorization of every later solve.
 
     - ``"auto"`` (default): Newton-Schulz for float32 ``[B, k, k]`` solves,
-      on every device; ``torch.linalg.eigh`` otherwise.  The eigen factors
-      (:func:`letkf_weight_factors`, :func:`letkf_weight_factors_from_normal`)
-      of a float32 batch take the Jacobi kernels on a card and
-      ``torch.linalg.eigh`` on the CPU, as the JAX package takes its Pallas
-      Jacobi off the CPU and LAPACK on it.  (The JAX package's ``"auto"``
-      solves by eigendecomposition on the CPU; here the CPU runs the card's
+      on every device (on a card K1 up to ``ns_kernel.MAX_K`` = 128
+      members and the batched ``torch.matmul`` iteration above, as
+      :func:`ns_route` says); ``torch.linalg.eigh`` otherwise.  The eigen
+      factors (:func:`letkf_weight_factors`,
+      :func:`letkf_weight_factors_from_normal`) of a float32 batch take the
+      Jacobi kernels on a card up to ``eigh_kernel.MAX_K`` = 177 and
+      ``torch.linalg.eigh`` on the CPU and above 177, as the JAX package
+      takes its Pallas Jacobi off the CPU within its VMEM budget and LAPACK
+      or XLA eigh otherwise.  (The JAX package's ``"auto"`` solves by
+      eigendecomposition on the CPU; here the CPU runs the card's
       Newton-Schulz path on the plain versions.)
     - ``"ns"``: another name for ``"auto"``, kept so that call sites written
       for the JAX package (where the two differ on the CPU) run unchanged.
     - ``"xla"``: ``torch.linalg.eigh``, the counterpart of the JAX package's
       XLA eigh.
-    - ``"jacobi"``: the Jacobi eigensolvers for float32 batches (on a card the
-      CUDA kernels, which take k <= 96 and raise above it);
-      ``torch.linalg.eigh`` for float64.
+    - ``"jacobi"``: the Jacobi eigensolvers for float32 batches up to
+      ``eigh_kernel.MAX_K`` members (on a card the CUDA kernels K3/K4, on
+      the CPU their plain versions); ``torch.linalg.eigh`` above it, as the
+      JAX package's VMEM guard takes XLA eigh (JAX solver.py:78-92), and
+      for float64.
     """
     global _EIGH_BACKEND
     if name not in EIGH_BACKENDS:
@@ -136,15 +148,36 @@ def set_eigh_backend(name: str):
     _EIGH_BACKEND = name
 
 
-def _use_jacobi(a: torch.Tensor) -> bool:
-    """Whether an eigendecomposition of ``a`` takes the Jacobi solvers:
-    float32 ``[B, k, k]`` under ``"jacobi"``, and on a card under
-    ``"auto"``.  Above ``eigh_kernel.MAX_K`` the card's kernels raise; no
-    library call stands in for them."""
-    if a.dtype != torch.float32 or a.ndim != 3:
-        return False
-    return (_EIGH_BACKEND == "jacobi"
-            or (_EIGH_BACKEND in ("auto", "ns") and a.device.type == "cuda"))
+#: solves a branch other than this package's kernels took since import (or
+#: since a caller reset them): ``"ns_matmul"``, the batched ``torch.matmul``
+#: Newton-Schulz iteration on a card (:func:`ns_route` ``"matmul"``), and
+#: ``"linalg_eigh"``, every ``torch.linalg.eigh`` of the eigen paths
+#: (:func:`eigh_route` ``"library"``)
+LIBRARY_SOLVES = {"ns_matmul": 0, "linalg_eigh": 0}
+
+
+def eigh_route(k: int, device, dtype=torch.float32) -> str:
+    """The branch an eigendecomposition of a ``[B, k, k]`` batch takes, from
+    ``k``, the device, the dtype and the backend alone:
+
+    - ``"kernel"``: K3/K4 (:mod:`.eigh_kernel`) on a card, for float32 under
+      ``"jacobi"``, ``"auto"`` or ``"ns"``, k <= ``eigh_kernel.MAX_K``;
+    - ``"plain"``: their plain versions on the CPU, for float32 under
+      ``"jacobi"``, k <= ``eigh_kernel.MAX_K``;
+    - ``"library"``: ``torch.linalg.eigh`` for everything else: ``"xla"``,
+      float64, the CPU under ``"auto"``, and every k above
+      ``eigh_kernel.MAX_K``, where the JAX package's VMEM guard takes XLA
+      eigh (JAX solver.py:78-92).
+    """
+    kind = torch.device(device).type
+    if (dtype != torch.float32 or _EIGH_BACKEND == "xla"
+            or k > eigh_kernel.MAX_K):
+        return "library"
+    if kind == "cuda":
+        return "kernel"
+    if kind == "cpu" and _EIGH_BACKEND == "jacobi":
+        return "plain"
+    return "library"
 
 
 def _use_ns(a_obs: torch.Tensor) -> bool:
@@ -163,8 +196,9 @@ def set_ns_impl(name: str):
     """Select the Newton-Schulz implementation by the JAX package's names.
 
     - ``"auto"`` (default) and ``"pallas"``: the CUDA kernel (K1) for
-      tensors on a card, its plain version :func:`ns_invsqrt` for tensors
-      on the CPU;
+      tensors on a card up to ``ns_kernel.MAX_K`` members and the batched
+      ``torch.matmul`` iteration above (:func:`ns_route`), the plain
+      version :func:`ns_invsqrt` for tensors on the CPU;
     - ``"xla"``: the plain iteration, which the port runs on the CPU only:
       a Newton-Schulz solve of tensors on a card raises under it.
 
@@ -176,46 +210,54 @@ def set_ns_impl(name: str):
     _NS_IMPL = name
 
 
-def check_ensemble_size(k: int, device, dtype=torch.float32) -> None:
-    """Refuse, before any work, an ensemble the card's kernels do not take.
+def ns_route(k: int, device) -> str:
+    """The branch a float32 Newton-Schulz solve of a ``[B, k, k]`` batch
+    takes, from ``k`` and the device alone:
 
-    A float32 solve on a CUDA device under ``"auto"``, ``"ns"`` or
-    ``"jacobi"`` goes to the Newton-Schulz or Jacobi kernels, which hold a
-    k x k matrix in one block's shared memory: ``ValueError`` for
-    ``k > MAX_K`` there.  A CPU solve, a float64 solve and ``"xla"`` take
-    any k.  The entry
-    points call this first, so a refused k fails before the planning and the
-    accumulation, not inside the first chunk's solve.
+    - ``"kernel"``: K1 (:mod:`.ns_kernel`) on a card, k <= ``ns_kernel.MAX_K``;
+    - ``"matmul"``: on a card above ``ns_kernel.MAX_K``, :func:`ns_invsqrt`
+      as batched ``torch.matmul`` (TF32 off, :mod:`..device`): the
+      counterpart of the JAX package's XLA branch of ``_ns_z`` (JAX
+      solver.py:153-154), which it takes for every k its Pallas kernel does
+      not support (every k > 64).  This is the one place where a card runs
+      the iteration that is also K1's plain version, and only because it is
+      the JAX package's own path at that k;
+    - ``"plain"``: :func:`ns_invsqrt` on the CPU.
+
+    Under ``set_ns_impl("xla")`` a card raises ``ValueError``, as does a
+    device that is neither.
     """
-    max_k = min(ns_kernel.MAX_K, eigh_kernel.MAX_K)
-    if (torch.device(device).type == "cuda" and dtype == torch.float32
-            and _EIGH_BACKEND != "xla" and k > max_k):
-        raise ValueError(
-            f"k={k} members: the CUDA solve kernels take k <= {max_k} "
-            f"(ns_kernel.MAX_K, eigh_kernel.MAX_K); use the CPU, a float64 "
-            f"solve or set_eigh_backend('xla') for a larger ensemble")
-
-
-def _ns_z(a_obs: torch.Tensor, inflat: float):
-    """``(z, residual)``: the CUDA kernel on a card, the plain version on the
-    CPU.  Under ``set_ns_impl("xla")`` a card's tensors raise."""
-    if a_obs.device.type == "cuda":
+    kind = torch.device(device).type
+    if kind == "cuda":
         if _NS_IMPL == "xla":
             raise ValueError(
                 "set_ns_impl('xla') selects the plain Newton-Schulz "
                 "iteration, which the port runs on the CPU only; use "
                 "'auto' or 'pallas' for tensors on a card")
+        return "kernel" if k <= ns_kernel.MAX_K else "matmul"
+    if kind == "cpu":
+        return "plain"
+    raise ValueError(f"no Newton-Schulz solve for tensors on {device}")
+
+
+def _ns_z(a_obs: torch.Tensor, inflat: float):
+    """``(z, residual)`` by the branch :func:`ns_route` names: K1, the
+    ``torch.matmul`` iteration (counted in ``LIBRARY_SOLVES``), or the plain
+    version on the CPU."""
+    route = ns_route(a_obs.shape[-1], a_obs.device)
+    if route == "kernel":
         z, _, resid = ns_kernel.ns_invsqrt_cuda(a_obs.contiguous(), float(inflat))
         return z, resid
-    if a_obs.device.type == "cpu":
-        z, _, resid = ns_invsqrt(a_obs, float(inflat), return_info=True)
-        return z, resid
-    raise ValueError(f"no Newton-Schulz solve for tensors on {a_obs.device}")
+    if route == "matmul":
+        LIBRARY_SOLVES["ns_matmul"] += 1
+    z, _, resid = ns_invsqrt(a_obs, float(inflat), return_info=True)
+    return z, resid
 
 
 def ns_invsqrt_refined(a_obs: torch.Tensor, inflat: float):
-    """``(z64, residual)``: the float32 Newton-Schulz ``Z`` (the CUDA kernel on
-    a card) refined in float64 by one Newton step.
+    """``(z64, residual)``: the float32 Newton-Schulz ``Z`` (:func:`_ns_z`:
+    the CUDA kernel on a card up to ``ns_kernel.MAX_K``, the ``torch.matmul``
+    iteration above) refined in float64 by one Newton step.
 
     With ``X_0`` the float32 ``Z`` and ``A = a_obs + inflat*I`` in float64::
 
@@ -246,7 +288,7 @@ def letkf_solve_group_refined(a_obs, g, xb, inflats, has_obs, *, rtpp_alpha,
     The contract of :func:`letkf_solve_group_from_normal` with
     ``solver_dtype=float64``, but each distinct inflation value's
     ``Z = A^(-1/2)`` comes from :func:`ns_invsqrt_refined` (one float32
-    Newton-Schulz call, the CUDA kernel on a card) and the weights and
+    Newton-Schulz call, :func:`_ns_z`'s branch) and the weights and
     RTPP/RTPS run in float64.  Takes float32 or float64 normal terms.
     Returns ``xa [B, V, k]`` in ``xb``'s dtype, with ``return_diagnostics``
     also ``{"ns_residual": 0-d float32}`` (the float32 stages' worst).
@@ -281,9 +323,13 @@ def letkf_solve_group_refined(a_obs, g, xb, inflats, has_obs, *, rtpp_alpha,
 
 def _eigh_batch(a: torch.Tensor):
     """Batched symmetric eigendecomposition ``(lam, v)``, in any order: the
-    solver only forms order-invariant ``V f(diag) V^T`` quantities."""
-    if _use_jacobi(a):
+    solver only forms order-invariant ``V f(diag) V^T`` quantities.  A
+    ``[B, k, k]`` batch goes where :func:`eigh_route` says; the Jacobi
+    solvers (:func:`jacobi_eigh`) pick the kernel or the plain version by
+    the device."""
+    if a.ndim == 3 and eigh_route(a.shape[-1], a.device, a.dtype) != "library":
         return jacobi_eigh(a)
+    LIBRARY_SOLVES["linalg_eigh"] += 1
     return torch.linalg.eigh(a)
 
 

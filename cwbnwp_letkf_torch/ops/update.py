@@ -21,8 +21,7 @@ from .bucketed import (auto_block_size, bucket_platform,
                        pad_last, required_max_blocks)
 from .dense import dense_platform_terms, fused_platform_table
 from .neighbors import normalize_coords, radius_neighbors
-from .solver import (check_ensemble_size, letkf_solve_from_normal,
-                     letkf_solve_group_from_normal)
+from .solver import letkf_solve_from_normal, letkf_solve_group_from_normal
 from .whiten import ObsStats, accumulate_platform_terms, platform_obs_stats
 
 #: normal-term accumulation methods: "dense" (one product against the fused
@@ -367,7 +366,6 @@ def update_points(
     their background.  With ``return_diagnostics`` also
     ``{"bucket_overflow", "ns_residual"}`` as 0-d tensors.
     """
-    check_ensemble_size(xb.shape[-1], xb.device, solver_dtype)
 
     def solve(a_obs, g, xbc, has_obs):
         return letkf_solve_from_normal(
@@ -413,7 +411,6 @@ def update_points_group(
     ``"gather"``.  Otherwise as :func:`update_points`.  Returns
     ``xa [B, V, k]``.
     """
-    check_ensemble_size(xb.shape[-1], xb.device, solver_dtype)
     n_vars = xb.shape[1]
     if not (len(ivars) == len(inflats) == len(rtpp_alpha)
             == len(rtps_alpha) == n_vars):

@@ -20,7 +20,15 @@ SHAPES = [
     ("K3 [2048,96,96]", eigh_kernel.work("parallel", 2048, 96), 112.97e9, 1.686),
     ("K4 [4096,41,41]", eigh_kernel.work("cyclic", 4096, 41), 17.35e9, 0.259),
     ("K4 [512,9,9]", eigh_kernel.work("cyclic", 512, 9), 20.9e6, None),
+    # the large-ensemble shapes of chip_smoke.py phase 17
+    ("K1 [2048,128,128]", ns_kernel.work(2048, 128, 5), 128.85e9, 1.923),
+    ("K3 [1024,128,128]", eigh_kernel.work("parallel", 1024, 128), 134.23e9, 2.004),
+    ("K3 [256,176,176]", eigh_kernel.work("parallel", 256, 176), 87.43e9, 1.305),
+    ("K4 [256,129,129]", eigh_kernel.work("cyclic", 256, 129), 34.35e9, 0.513),
+    ("K4 [64,177,177]", eigh_kernel.work("cyclic", 64, 177), 22.23e9, 0.332),
 ]
+#: the shapes with a bound: all but K4 [512,9,9]
+BOUNDED = [s for s in SHAPES if s[3] is not None]
 
 
 @pytest.mark.parametrize("label,work,flop,bound", SHAPES, ids=[s[0] for s in SHAPES])
@@ -28,9 +36,9 @@ def test_work_at_the_timed_shapes(label, work, flop, bound):
     assert work[0] == pytest.approx(flop, rel=5e-4 if flop > 1e9 else 5e-3)
 
 
-@pytest.mark.parametrize("label,work,flop,bound", SHAPES[:5], ids=[s[0] for s in SHAPES[:5]])
+@pytest.mark.parametrize("label,work,flop,bound", BOUNDED, ids=[s[0] for s in BOUNDED])
 def test_bound_at_the_timed_shapes(label, work, flop, bound):
-    """All five are bound by operations, not bytes."""
+    """All ten are bound by operations, not bytes."""
     got = cuda_build.bound_ms(*work)
     assert round(got, 3) == bound
     assert got == pytest.approx(1e3 * work[0] / cuda_build.PEAK_FP32_FLOPS, rel=1e-12)
@@ -46,6 +54,9 @@ def test_bound_below_a_launch_at_k9():
     (ns_kernel.work(2048, 96, 5), 151e6),
     (eigh_kernel.work("parallel", 4096, 40), 53e6),
     (eigh_kernel.work("cyclic", 512, 9), 0.35e6),
+    (ns_kernel.work(2048, 128, 5), 268.4e6),
+    (eigh_kernel.work("parallel", 256, 176), 63.6e6),
+    (eigh_kernel.work("cyclic", 64, 177), 16.1e6),
 ])
 def test_bytes_at_the_timed_shapes(work, nbytes):
     assert work[1] == pytest.approx(nbytes, rel=5e-3)

@@ -156,7 +156,7 @@ def test_port_imports_without_jax():
         "            'examples.wrf_case', 'examples.profile_cycle',\n"
         "            'examples.profile_groups', 'examples.gpu_drive',\n"
         "            'examples.run_synthetic_cycle', 'examples.gpu_cli_drive',\n"
-        "            'examples.memory_bench'):\n"
+        "            'examples.memory_bench', 'examples.layout_ab'):\n"
         "    assert 'cwbnwp_letkf_torch.' + mod in names, names\n"
         "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=root,

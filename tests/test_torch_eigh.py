@@ -15,7 +15,8 @@ from cwbnwp_letkf_torch.ops import eigh_kernel
 from cwbnwp_letkf_torch.ops.jacobi_eigh import (jacobi_cyclic, jacobi_eigh,
                                                 jacobi_parallel, round_robin)
 
-from .torch_parity import assert_eigh_close, assert_k96_sweep_level, spd_case
+from .torch_parity import (assert_eigh_close, assert_k96_sweep_level,  # noqa: F401
+                           one_torch_thread, spd_case)
 
 
 @pytest.mark.parametrize("k", [4, 16, 40, 2, 3, 9, 13, 41])
@@ -108,7 +109,7 @@ def test_round_robin_plain_needs_even_k():
 @pytest.mark.parametrize("bad", [
     torch.zeros(4, 40, 40),                          # on the CPU
     torch.zeros(4, 40, 40, dtype=torch.float64),
-    torch.zeros(4, 97, 97),
+    torch.zeros(4, eigh_kernel.MAX_K + 1, eigh_kernel.MAX_K + 1),
     torch.zeros(40, 40),
     torch.zeros(4, 40, 80)[:, :, :40],
     torch.zeros(0, 40, 40),

@@ -610,6 +610,6 @@ def test_drives_import_nothing_of_bench_or_tests():
     pattern = re.compile(r"^\s*(import|from)\s+(bench|tests|examples)\b",
                          re.M)
     srcs = sorted((ROOT / "cwbnwp_letkf_torch" / "examples").glob("*.py"))
-    assert len(srcs) == 11
+    assert len(srcs) == 12
     for path in srcs:
         assert not pattern.search(path.read_text()), path

@@ -22,7 +22,8 @@ from .torch_parity import (assert_eigh_close, assert_k96_sweep_level,
                            spd_case)
 
 #: the ensemble sizes of the kernel checks: both Jacobi kernels, odd and
-#: even, below and above a warp, and the largest k the kernels take
+#: even, below and above a warp, and the production k (above 96: the
+#: ``*_large_k`` tests)
 KS = [2, 3, 8, 9, 40, 41, 96]
 
 pytestmark = pytest.mark.gpu
@@ -36,7 +37,8 @@ def cuda():
 
 
 @pytest.mark.parametrize("k,b", [(1, 3), (8, 7), (12, 5), (21, 33), (40, 129),
-                                 (64, 65), (96, 17)])
+                                 (64, 65), (96, 17), (97, 5), (127, 3),
+                                 (128, 9)])
 def test_kernel_matches_plain(cuda, k, b):
     rng = np.random.default_rng(k)
     a_np, _ = normal_case(rng, b, k, 2 * k)
@@ -175,7 +177,8 @@ def test_ns_impl_xla_refuses_cuda_tensors(cuda):
 
 @pytest.mark.parametrize("bad", [
     lambda d: torch.zeros(4, 40, 40, dtype=torch.float64, device=d),
-    lambda d: torch.zeros(4, 97, 97, device=d),
+    lambda d: torch.zeros(4, eigh_kernel.MAX_K + 1, eigh_kernel.MAX_K + 1,
+                          device=d),
     lambda d: torch.zeros(40, 40, device=d),
     lambda d: torch.zeros(4, 40, 80, device=d)[:, :, :40],
 ])
@@ -186,6 +189,18 @@ def test_kernel_rejects_bad_input(cuda, bad):
         ns_kernel.ns_invsqrt_cuda(bad(cuda), 1.0, packing="rmul")
     with pytest.raises(ValueError):
         eigh_kernel.launch(bad(cuda))
+
+
+def test_ns_kernel_rejects_k_above_its_range(cuda):
+    """K1/K2 take k <= 128; at 129 the wrapper raises before any launch
+    (the solver never sends it there: ``solver.ns_route``)."""
+    k = ns_kernel.MAX_K + 1
+    before = dict(ns_kernel.LAUNCHES)
+    for packing in ns_kernel.LAUNCHES:
+        with pytest.raises(ValueError, match=f"k={k}"):
+            ns_kernel.launch(torch.zeros(2, k, k, device=cuda), 1.0,
+                             packing=packing)
+    assert ns_kernel.LAUNCHES == before
 
 
 def test_jacobi_kernel_rejects_empty_batch(cuda):
@@ -266,6 +281,35 @@ def test_jacobi_cyclic_partition_edges(cuda, k, b):
     assert torch.equal(lam, lam_p) and torch.equal(v, v_p)
 
 
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("k", [98, 128, 170, 172, 176])
+def test_jacobi_parallel_large_k(cuda, k, b):
+    """K3 above k = 96, a 512-thread block per matrix, bit for bit against
+    its plain version: V in shared memory through k = 170 and in device
+    memory from 172, where the output is gathered through A's shared
+    memory.  Two sweeps, to keep the plain version short."""
+    rng = np.random.default_rng(600 + k + b)
+    a = torch.from_numpy(spd_case(rng, b, k)).to(cuda)
+    assert eigh_kernel.config(k)["v_in_device_memory"] == int(k >= 172)
+    lam, v = eigh_kernel.launch(a, sweeps=2)
+    lam_p, v_p = jacobi_parallel(a, sweeps=2)
+    assert torch.equal(lam, lam_p) and torch.equal(v, v_p)
+
+
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("k", [97, 129, 169, 171, 177])
+def test_jacobi_cyclic_large_k(cuda, k, b):
+    """K4 above k = 96, six indices a lane, bit for bit against its plain
+    version: V in shared memory through k = 169 and in device memory from
+    171.  One sweep, to keep the plain version short."""
+    rng = np.random.default_rng(700 + k + b)
+    a = torch.from_numpy(spd_case(rng, b, k)).to(cuda)
+    assert eigh_kernel.config(k)["v_in_device_memory"] == int(k >= 171)
+    lam, v = eigh_kernel.launch(a, sweeps=1)
+    lam_p, v_p = jacobi_cyclic(a, sweeps=1)
+    assert torch.equal(lam, lam_p) and torch.equal(v, v_p)
+
+
 def test_jacobi_cyclic_nan_matrix_leaves_its_neighbours(cuda):
     """A NaN stays in its matrix, the other matrix of its warp included."""
     a = torch.from_numpy(spd_case(np.random.default_rng(77), 5, 41)).to(cuda)
@@ -278,11 +322,14 @@ def test_jacobi_cyclic_nan_matrix_leaves_its_neighbours(cuda):
 
 
 @pytest.mark.parametrize("k,threads,matrices", [(41, 128, 8), (9, 128, 4),
-                                                (40, 128, 4), (96, 256, 1)])
+                                                (40, 128, 4), (96, 256, 1),
+                                                (128, 512, 1), (176, 512, 1),
+                                                (129, 32, 1), (177, 32, 1)])
 def test_jacobi_config(cuda, k, threads, matrices):
     """The launch shapes: four warps a block of two k=41 matrices each (K4),
     of one matrix at any other k (K4, and K3 at k=40), one 256-thread block
-    per k=96 matrix (K3)."""
+    per k=96 matrix (K3); above k = 96 a 512-thread block per matrix (K3)
+    and one warp a block (K4)."""
     cfg = eigh_kernel.config(k)
     assert (cfg["threads"], cfg["matrices"]) == (threads, matrices)
     assert cfg["registers"] > 0 and cfg["blocks_per_sm"] >= 1
@@ -307,24 +354,35 @@ def test_jacobi_eigh_dispatches_cuda_to_kernel(cuda, k):
     assert_eigh_close(lam.cpu().numpy(), v.cpu().numpy(), a_np)
 
 
-def test_jacobi_solve_on_cuda_has_no_fallback(cuda):
-    """Under "jacobi" a CUDA solve launches the kernel, and above the
-    kernel's k it raises instead of taking another eigensolver."""
+def test_jacobi_solve_on_cuda_has_no_fallback(cuda, monkeypatch):
+    """Under "jacobi" a CUDA solve launches the kernel up to
+    ``eigh_kernel.MAX_K`` and takes ``torch.linalg.eigh`` above it (the JAX
+    package's VMEM guard), chosen from k before any launch; a kernel that
+    fails at a k it takes raises instead of giving way to the library."""
     solver.set_eigh_backend("jacobi")
     try:
-        for k, ok in ((12, True), (eigh_kernel.MAX_K + 1, False)):
+        for k, kernel in ((12, True), (eigh_kernel.MAX_K + 1, False)):
             a_np, g_np = normal_case(np.random.default_rng(k), 8, k, 2 * k)
             a, g = (torch.from_numpy(x).to(cuda) for x in (a_np, g_np))
             xb = torch.randn(8, k, device=cuda)
             has = torch.ones(8, dtype=torch.bool, device=cuda)
-            before = eigh_kernel.LAUNCHES["parallel"]
-            if ok:
-                xa = solver.letkf_solve_from_normal(a, g, xb, k - 1.0, has)
-                assert bool(torch.isfinite(xa).all())
-                assert eigh_kernel.LAUNCHES["parallel"] == before + 1
-            else:
-                with pytest.raises(ValueError):
-                    solver.letkf_solve_from_normal(a, g, xb, k - 1.0, has)
+            before = dict(eigh_kernel.LAUNCHES)
+            lib = solver.LIBRARY_SOLVES["linalg_eigh"]
+            xa = solver.letkf_solve_from_normal(a, g, xb, k - 1.0, has)
+            assert bool(torch.isfinite(xa).all())
+            launched = sum(eigh_kernel.LAUNCHES.values()) - sum(before.values())
+            assert launched == int(kernel)
+            assert solver.LIBRARY_SOLVES["linalg_eigh"] == lib + int(not kernel)
+
+        def broken(*args, **kwargs):
+            raise RuntimeError("jacobi_parallel_f32 launch failed")
+
+        monkeypatch.setattr(eigh_kernel, "launch", broken)
+        lib = solver.LIBRARY_SOLVES["linalg_eigh"]
+        with pytest.raises(RuntimeError, match="launch failed"):
+            solver.letkf_solve_from_normal(a[:, :12, :12].contiguous(),
+                                           g[:, :12], xb[:, :12], 11.0, has)
+        assert solver.LIBRARY_SOLVES["linalg_eigh"] == lib
     finally:
         solver.set_eigh_backend("auto")
 
@@ -333,7 +391,7 @@ def test_jacobi_solve_on_cuda_has_no_fallback(cuda):
 def test_auto_eigen_factors_launch_jacobi_kernels(cuda, k, name):
     """Under "auto" the eigen factors of a float32 batch on a card are the
     Jacobi kernels' (K3 at even k, K4 at odd), never ``torch.linalg.eigh``;
-    above the kernels' k they raise."""
+    above the kernels' k they are ``torch.linalg.eigh``'s, with no launch."""
     a_np, g_np = normal_case(np.random.default_rng(310 + k), 16, k, 2 * k)
     a, g = (torch.from_numpy(x).to(cuda) for x in (a_np, g_np))
     inflat = (k - 1) / 1.6
@@ -345,9 +403,11 @@ def test_auto_eigen_factors_launch_jacobi_kernels(cuda, k, name):
     assert_eigh_close(lam.cpu().numpy(), v.cpu().numpy(),
                       a_np + inflat * np.eye(k, dtype=np.float32))
     big = torch.eye(eigh_kernel.MAX_K + 1, device=cuda)[None]
-    with pytest.raises(ValueError):
-        solver.letkf_weight_factors_from_normal(
-            big, torch.zeros(1, big.shape[-1], device=cuda), 1.0)
+    before = dict(eigh_kernel.LAUNCHES)
+    lam, v, _ = solver.letkf_weight_factors_from_normal(
+        big, torch.zeros(1, big.shape[-1], device=cuda), 1.0)
+    assert eigh_kernel.LAUNCHES == before
+    assert torch.allclose(lam, torch.full_like(lam, 2.0))
 
 
 def test_refined_solve_takes_k1_on_card(cuda):

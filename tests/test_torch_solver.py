@@ -100,7 +100,7 @@ def test_ns_z_takes_plain_version_on_cpu():
 @pytest.mark.parametrize("bad", [
     torch.zeros(4, 40, 40),                          # on the CPU
     torch.zeros(4, 40, 40, dtype=torch.float64),
-    torch.zeros(4, 97, 97),
+    torch.zeros(4, ns_kernel.MAX_K + 1, ns_kernel.MAX_K + 1),
     torch.zeros(40, 40),
     torch.zeros(4, 40, 80)[:, :, :40],
     torch.zeros(0, 40, 40),
@@ -292,25 +292,30 @@ def test_set_eigh_backend_validates():
         solver.set_eigh_backend("magma")
 
 
-@pytest.mark.parametrize("device,k,backend,dtype,ok", [
-    ("cpu", 96, "auto", torch.float32, True),
-    ("cpu", 97, "auto", torch.float32, True),
-    ("cuda", 96, "auto", torch.float32, True),
-    ("cuda", 97, "auto", torch.float32, False),
-    ("cuda", 97, "jacobi", torch.float32, False),
-    ("cuda", 97, "xla", torch.float32, True),
-    ("cuda", 97, "auto", torch.float64, True),
+@pytest.mark.parametrize("device,k,backend,dtype,ns,eigh", [
+    ("cpu", 96, "auto", torch.float32, "plain", "library"),
+    ("cpu", 178, "auto", torch.float32, "plain", "library"),
+    ("cpu", 177, "jacobi", torch.float32, "plain", "plain"),
+    ("cpu", 178, "jacobi", torch.float32, "plain", "library"),
+    ("cuda", 96, "auto", torch.float32, "kernel", "kernel"),
+    ("cuda", 128, "auto", torch.float32, "kernel", "kernel"),
+    ("cuda", 129, "auto", torch.float32, "matmul", "kernel"),
+    ("cuda", 177, "jacobi", torch.float32, "matmul", "kernel"),
+    ("cuda", 178, "jacobi", torch.float32, "matmul", "library"),
+    ("cuda", 192, "auto", torch.float32, "matmul", "library"),
+    ("cuda", 129, "xla", torch.float32, "matmul", "library"),
+    ("cuda", 97, "auto", torch.float64, "kernel", "library"),
 ])
-def test_check_ensemble_size(device, k, backend, dtype, ok):
-    """A float32 solve on a card under a kernel backend refuses k > 96 (the
-    kernels' MAX_K); the CPU, float64 and "xla" take any k.  No tensor is
-    made, so the CUDA cases run without a card."""
+def test_check_ensemble_size(device, k, backend, dtype, ns, eigh):
+    """No ensemble size is refused any more: on a card a float32 solve takes
+    K1 up to ``ns_kernel.MAX_K`` = 128 and the ``torch.matmul`` iteration
+    above, and the eigen paths K3/K4 up to ``eigh_kernel.MAX_K`` = 177 and
+    ``torch.linalg.eigh`` above (the JAX package's VMEM guard); the CPU,
+    float64 and "xla" keep their branches.  The routes are named from the
+    size alone, so the CUDA cases run without a card."""
     solver.set_eigh_backend(backend)
-    if ok:
-        solver.check_ensemble_size(k, torch.device(device), dtype)
-    else:
-        with pytest.raises(ValueError, match=f"k={k}.*k <= 96"):
-            solver.check_ensemble_size(k, torch.device(device), dtype)
+    assert solver.ns_route(k, device) == ns
+    assert solver.eigh_route(k, torch.device(device), dtype) == eigh
 
 
 def _refined_case():
@@ -391,16 +396,21 @@ def test_letkf_solve_group_refined_matches_float64():
 
 @pytest.mark.parametrize("name", ["auto", "pallas", "xla"])
 def test_set_ns_impl_names(name):
-    """The JAX package's names: on the CPU each takes the plain iteration,
-    and none lifts the card's size limit (the plain iteration never runs on
-    a card)."""
+    """The JAX package's names: on the CPU each takes the plain iteration;
+    on a card "auto" and "pallas" take K1 up to 128 members and the
+    ``torch.matmul`` iteration from 129, and "xla" raises at every k."""
     a, g = normal_case(np.random.default_rng(76), 6, 9, 20)
     want = solver._ns_z(torch.from_numpy(a), 4.0)
     solver.set_ns_impl(name)
     z, resid = solver._ns_z(torch.from_numpy(a), 4.0)
     assert torch.equal(z, want[0]) and float(resid) <= 1e-4
-    with pytest.raises(ValueError, match="k=97"):
-        solver.check_ensemble_size(97, torch.device("cuda"), torch.float32)
+    if name == "xla":
+        for k in (ns_kernel.MAX_K, ns_kernel.MAX_K + 1):
+            with pytest.raises(ValueError, match="CPU only"):
+                solver.ns_route(k, "cuda")
+    else:
+        assert solver.ns_route(ns_kernel.MAX_K, "cuda") == "kernel"
+        assert solver.ns_route(ns_kernel.MAX_K + 1, "cuda") == "matmul"
 
 
 def test_set_ns_impl_refuses_unknown():

@@ -242,28 +242,41 @@ class _Refused(Exception):
 @pytest.mark.parametrize("entry", ["update_points", "update_points_group",
                                    "update_points_cycle"])
 def test_entry_checks_ensemble_size_first(entry, monkeypatch):
-    """Each entry point asks ``solver.check_ensemble_size`` about its k and
-    dtype before it plans or accumulates anything: the check is the first
-    thing to fail, even with no platforms and no points."""
-    from cwbnwp_letkf_torch.ops import cycle
+    """No entry point refuses an ensemble size any more; the solve's branch
+    is named from k before any launch (``solver.ns_route``).  With the
+    card's routes (the CPU standing in for the card), each entry at
+    ``ns_kernel.MAX_K`` = 128 members reaches K1, and a K1 that fails
+    raises to the caller: the ``torch.matmul`` branch never stands in."""
+    from cwbnwp_letkf_torch.ops import cycle, ns_kernel
 
+    k = ns_kernel.MAX_K
+    route = solver.ns_route
     seen = []
 
-    def refuse(k, device, dtype=torch.float32):
-        seen.append((k, torch.device(device).type, dtype))
+    def k1_fails(a_obs, inflat, **kwargs):
+        seen.append(a_obs.shape[-1])
         raise _Refused
 
-    module = cycle if entry == "update_points_cycle" else update
-    monkeypatch.setattr(module, "check_ensemble_size", refuse)
-    xb = torch.zeros((0, 97) if entry == "update_points" else (0, 1, 97))
-    pts = torch.zeros((0, 3))
+    monkeypatch.setattr(solver, "ns_route", lambda kk, device: route(kk, "cuda"))
+    monkeypatch.setattr(ns_kernel, "ns_invsqrt_cuda", k1_fails)
+    pts, xb_v, plats = cycle_case(nobs_vr=300, nx=4, nz=2, k=k)
+    tplats = [update.prepare_platform(*to_port(st, po), device="cpu")
+              for st, po in plats]
+    q, xb = torch.from_numpy(pts), torch.from_numpy(xb_v)
+    matmul = solver.LIBRARY_SOLVES["ns_matmul"]
     with pytest.raises(_Refused):
         if entry == "update_points":
-            update.update_points(xb, pts, [], 0, inflat=1.0, weight_function=0)
+            update.update_points(xb[:, 0], q, tplats, 0, inflat=k / 1.6,
+                                 weight_function=0)
         elif entry == "update_points_group":
-            update.update_points_group(xb, pts, [], [0], inflats=[1.0],
-                                       weight_function=0, rtpp_alpha=[0.0],
-                                       rtps_alpha=[0.0])
+            update.update_points_group(xb[:, :2], q, tplats, [0, 1],
+                                       inflats=[k / 1.6] * 2,
+                                       weight_function=0,
+                                       rtpp_alpha=[0.0] * 2,
+                                       rtps_alpha=[0.0] * 2)
         else:
-            cycle.update_points_cycle(xb, pts, [], [], weight_function=0)
-    assert seen == [(97, "cpu", torch.float32)]
+            groups = [cycle.CycleGroup(*f) for f in group_fields(k)]
+            cycle.update_points_cycle(xb, q, tplats, groups,
+                                      weight_function=0)
+    assert seen == [k]
+    assert solver.LIBRARY_SOLVES["ns_matmul"] == matmul
