@@ -9,8 +9,10 @@ Phases, in order; any failure raises and the exit code is not 0:
 1. build both kernel libraries from ``cwbnwp_letkf_torch/csrc``, one
    ``nvcc`` per source, started together; print the compiler's report and
    what a Newton-Schulz launch uses at k=40 and k=96 and a Jacobi launch at
-   the shapes of phase 6 (threads, shared memory, registers, resident
-   blocks, and for the Jacobi kernels resident matrices, per SM);
+   the shapes of phases 6 and 17 (threads, shared memory, registers,
+   resident blocks, and for the Jacobi kernels resident matrices, per SM);
+   K3 above k = 96: V in registers at every even k of 98-176 and no spill
+   or stack frame in any of its instances, its launch at phase 17's shapes;
 2. K1, the Newton-Schulz kernel, against its plain PyTorch version at the
    main path's stacked shape ``[12288, 40, 40]`` and at ``[2048, 96, 96]``,
    on seeded normal matrices and on ill-conditioned dense-obs ones, with
@@ -148,10 +150,11 @@ Phases, in order; any failure raises and the exit code is not 0:
 17. large ensembles, the JAX package's whole kernel range and the branches
    above it: (a) K1/K2 at ``[2048, 128, 128]`` (phase 2's rule; the plain
    iteration's time is the card's ``torch.matmul`` branch above k = 128),
-   K3 at ``[1024, 128, 128]`` and ``[256, 176, 176]`` and K4 at
-   ``[256, 129, 129]`` and ``[64, 177, 177]`` bit for bit (K4's plain
-   version on the first ``LARGE_PLAIN_BATCH`` matrices), each with its
-   bound, plain and ``torch.linalg.eigh`` times; (b) phase 13's case with
+   K3 at ``[1024, 128, 128]``, ``[512, 160, 160]`` and ``[256, 176,
+   176]`` and K4 at ``[256, 129, 129]`` and ``[64, 177, 177]`` bit for bit
+   (K4's plain version on the first ``LARGE_PLAIN_BATCH`` matrices), each
+   with its bound, the share of it and of the issue floor (twice the
+   bound), plain and ``torch.linalg.eigh`` times; (b) phase 13's case with
    128 members, the same ``PROD_RUN_SLABS`` slabs by the same runner (K1
    once a chunk, no library solve, no overflow, converged, K1 against its
    plain version on the first real batch, slab
@@ -179,6 +182,7 @@ so the script fails when run alone, and it fails without a card.
 import contextlib
 import io
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -284,10 +288,11 @@ PROD_RUN_SLABS = 2
 #: drive's own default is 2; one keeps phase 16 near 150 s)
 PROFILE_REPS = 1
 #: phase 17, large ensembles.  (a) the kernels at the new shapes: K1/K2 at
-#: k=128, their largest k; K3 at 128 and 176 and K4 at 129 and 177, up to the
-#: Jacobi kernels' largest k (the JAX package's Pallas reach)
+#: k=128, their largest k; K3 at 128, 160 and 176 and K4 at 129 and 177, up
+#: to the Jacobi kernels' largest k (the JAX package's Pallas reach)
 LARGE_NS_SHAPES = ((2048, 128),)
-LARGE_JACOBI_SHAPES = {"jacobi_parallel": ((1024, 128), (256, 176)),
+LARGE_JACOBI_SHAPES = {"jacobi_parallel": ((1024, 128), (512, 160),
+                                           (256, 176)),
                        "jacobi_cyclic": ((256, 129), (64, 177))}
 #: K4's plain version loops over k (k - 1) / 2 rotations a sweep in Python,
 #: about 0.44 ms each on the card whatever the batch: it is held bit for bit
@@ -920,10 +925,12 @@ def compare_jacobi(a, label, timed=True, rec_tol=3e-5, plain_batch=None,
         cut["plain_batch"] = nb
     entry = timed_entry(max(d_lam, d_v), ms, plain_ms,
                         eigh_kernel.work(name, b, k), lib_ms, **cut)
+    entry["issue_floor_share"] = 2 * entry["share_of_bound"]
     print(f"  [{b},{k},{k}] {name} kernel {ms:.4f} ms (median of 5 warm runs,"
           f" CUDA events)  plain {plain_ms:.4f} ms ({plain_how}); bound "
           f"{entry['bound_ms']:.4f} ms by {entry['bound_by']}, share of bound "
-          f"{entry['share_of_bound']:.3f}; torch.linalg.eigh float32 "
+          f"{entry['share_of_bound']:.3f}, of the issue floor (twice the "
+          f"bound) {entry['issue_floor_share']:.3f}; torch.linalg.eigh float32 "
           f"{lib_ms:.4f} ms (median of {LIBRARY_REPS} warm runs"
           + (")" if lib_b == b else f", BATCH CUT to {lib_b} of {b} to keep "
              f"the yardstick inside {LIBRARY_BUDGET_S:.0f} s: "
@@ -2386,6 +2393,38 @@ def phase_drives(dev, smi_line, case, cycle3_s, root):
     return launches, err
 
 
+def check_large_k3(library):
+    """Phase 1: K3 above k = 96 keeps V on chip, in registers, at every even
+    k it takes, and no instance spills or keeps an array in local memory
+    (the compiler's report of ``library``); prints the launch at the large
+    shapes: threads, shared memory, registers, spills, matrices a block and
+    an SM, and where V lives."""
+    from cwbnwp_letkf_torch.ops import cuda_build, eigh_kernel
+
+    big = {int(re.search(r"big_kernelILi(\d+)E", entry).group(1)): res
+           for entry, res in cuda_build.resources(library).items()
+           if "jacobi_parallel_big_kernel" in entry}
+    check(sorted(big) == sorted({(k + 3) // 4 for k in range(98, 177, 2)}),
+          f"K3 above 96: instances {sorted(big)}")
+    for pairs, res in sorted(big.items()):
+        check(res["spill_stores"] == res["spill_loads"] == res["stack"] == 0,
+              f"K3 above 96, P={pairs}: local memory {res}")
+    for k in range(98, eigh_kernel.MAX_K, 2):
+        cfg = eigh_kernel.config(k)
+        check(cfg["v_in_device_memory"] == 0 and cfg["v_in_registers"] == 1,
+              f"K3 at k={k}: V not in registers: {cfg}")
+    for _, k in LARGE_JACOBI_SHAPES["jacobi_parallel"]:
+        cfg, res = eigh_kernel.config(k), big[(k + 3) // 4]
+        print(f"  K3 at k={k}: {cfg['threads']} threads, "
+              f"{cfg['smem_bytes']} bytes of shared memory, "
+              f"{res['registers']} registers, spills {res['spill_stores']} / "
+              f"{res['spill_loads']} bytes, stack {res['stack']} bytes; "
+              f"{cfg['matrices']} matrix a block, {cfg['matrices_per_sm']} an "
+              f"SM; V in registers")
+    print(f"  K3 above 96: V in registers and no local memory at every even "
+          f"k of 98-176 ({len(big)} instances)")
+
+
 def phase_large_kernels(dev):
     """Phase 17(a): every kernel against its plain version at the large
     shapes; returns ``{kernel: [measured record, ...]}``, one a shape.  K1
@@ -2838,6 +2877,7 @@ def main():
         for name, pairs in shapes.items():
             for _, k in pairs:
                 print(f"  {name} at k={k}: {eigh_kernel.config(k)}")
+    check_large_k3(libs[1])
 
     record = {}
     with torch.inference_mode(), contextlib.ExitStack() as stack:

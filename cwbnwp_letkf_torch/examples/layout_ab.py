@@ -6,12 +6,17 @@ Each alternative is built from the kernel's own source by one textual
 substitution (:data:`VARIANTS`), so the two libraries share every other
 line; a substitution that no longer matches the source raises.
 
-- ``jacobi_v_device``: K3/K4 (``csrc/jacobi_eigh.cu``) with V in device
+- ``jacobi_v_device``: K4 (``csrc/jacobi_eigh.cu``) with V in device
   memory at every k above 96.  The source keeps V in shared memory
-  wherever A and V fit one block (through k = 170 for K3, 169 for K4), which
-  takes one matrix an SM; V in device memory leaves room for two or three.
-  Timed at K3 ``[1024, 128, 128]``, ``[256, 168, 168]`` and K4
-  ``[256, 129, 129]``, ``[256, 169, 169]``, seven sweeps.
+  wherever A and V fit one block (through k = 169), which takes one matrix
+  an SM; V in device memory leaves room for two or three.  Timed at
+  ``[256, 129, 129]`` and ``[256, 169, 169]``, seven sweeps.  (K3 keeps V
+  in registers at every k above 96.)
+- ``jacobi_two_barriers``: K3 above k = 96 with every warp waiting on the
+  barrier that only the warps computing the next round's rotations wait on
+  in the source, where the others only arrive: two full barriers a round
+  instead of one.  Timed at ``[1024, 128, 128]``, ``[512, 160, 160]`` and
+  ``[256, 176, 176]``, seven sweeps.
 - ``ns_k128_const``: K1/K2 (``csrc/ns_invsqrt.cu``) with the tile counts of
   k = 128 as template constants, as k = 40 and 96 have them.  The source
   reads them at run time above 96.  Timed at ``[2048, 128, 128]``, at most
@@ -35,15 +40,19 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..ops import cuda_build
+from ..ops import cuda_build, eigh_kernel
 from . import select_device
 
 #: name -> (source, text in it, its replacement)
 VARIANTS = {
     "jacobi_v_device": (
         "jacobi_eigh.cu",
-        "  *v_global = on_chip > optin;\n",
+        "  *v_global = cyclic_floats(k, false) * sizeof(float) > optin;\n",
         "  *v_global = true;\n"),
+    "jacobi_two_barriers": (
+        "jacobi_eigh.cu",
+        "      bar_arrive(1, threads);\n",
+        "      bar_sync(1, threads);\n"),
     "ns_k128_const": (
         "ns_invsqrt.cu",
         "  } else if (k > kMidK) {\n",
@@ -53,9 +62,12 @@ VARIANTS = {
         "  } else if (k > kMidK) {\n"),
 }
 
-#: (kernel, batch, k): the Jacobi cases
-JACOBI_CASES = (("parallel", 1024, 128), ("cyclic", 256, 129),
-                ("parallel", 256, 168), ("cyclic", 256, 169))
+#: Jacobi variant -> its cases (kernel, batch, k)
+JACOBI_CASES = {
+    "jacobi_v_device": (("cyclic", 256, 129), ("cyclic", 256, 169)),
+    "jacobi_two_barriers": (("parallel", 1024, 128), ("parallel", 512, 160),
+                            ("parallel", 256, 176)),
+}
 NS_CASE = (2048, 128)
 SWEEPS = 7
 NS_STEPS = 5
@@ -74,16 +86,19 @@ def variant_source(name: str) -> str:
 
 
 def build_pairs() -> dict:
-    """``{variant: (source library, variant library)}``, all built at once."""
-    paths = []
+    """``{variant: (source library, variant library)}``, all built at once
+    (each source once)."""
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    paths = {}
     for name, (src, _, _) in VARIANTS.items():
-        cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         alt = cuda_build.BUILD_DIR / f"{Path(src).stem}_{name}.cu"
         alt.write_text(variant_source(name))
-        paths += [cuda_build.CSRC / src, alt]
-    libs = [ctypes.CDLL(str(p)) for p in cuda_build.build(*paths)]
-    return {name: (libs[2 * i], libs[2 * i + 1])
-            for i, name in enumerate(VARIANTS)}
+        paths.setdefault(src, cuda_build.CSRC / src)
+        paths[name] = alt
+    libs = dict(zip(paths, (ctypes.CDLL(str(p))
+                            for p in cuda_build.build(*paths.values()))))
+    return {name: (libs[src], libs[name])
+            for name, (src, _, _) in VARIANTS.items()}
 
 
 def median_ms(fn, reps: int = 5) -> float:
@@ -134,28 +149,28 @@ def run(dev) -> dict:
     pairs = build_pairs()
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     out = {}
-    for kind, b, k in JACOBI_CASES:
-        a = spd(b, k, SEED + k, dev)
-        bufs = {side: (torch.empty((b, k), device=dev), torch.empty_like(a))
-                for side in ("source", "variant")}
-        calls, configs = {}, {}
-        for side, lib in zip(("source", "variant"), pairs["jacobi_v_device"]):
-            fn = getattr(lib, f"jacobi_{kind}_f32")
-            lam, v = bufs[side]
-            calls[side] = (lambda fn=fn, lam=lam, v=v: fn(
-                ctypes.c_void_p(a.data_ptr()), ctypes.c_void_p(lam.data_ptr()),
-                ctypes.c_void_p(v.data_ptr()), b, k, SWEEPS, stream))
-            cfg = (ctypes.c_int * 6)()
-            if lib.jacobi_config(int(kind == "cyclic"), k, cfg) != 0:
-                raise RuntimeError(f"jacobi_config failed at k={k}")
-            configs[side] = dict(zip(("threads", "smem_bytes", "registers",
-                                      "matrices", "blocks_per_sm",
-                                      "v_in_device_memory"), cfg))
-        res = ab(calls, lambda side: bufs[side])
-        name = "K4" if kind == "cyclic" else "K3"
-        key = f"jacobi_v_device {name} [{b},{k},{k}]"
-        out[key] = {**res, "config": configs}
-        print(key, json.dumps(out[key]), flush=True)
+    for variant, cases in JACOBI_CASES.items():
+        for kind, b, k in cases:
+            a = spd(b, k, SEED + k, dev)
+            bufs = {side: (torch.empty((b, k), device=dev), torch.empty_like(a))
+                    for side in ("source", "variant")}
+            calls, configs = {}, {}
+            for side, lib in zip(("source", "variant"), pairs[variant]):
+                fn = getattr(lib, f"jacobi_{kind}_f32")
+                lam, v = bufs[side]
+                calls[side] = (lambda fn=fn, lam=lam, v=v: fn(
+                    ctypes.c_void_p(a.data_ptr()),
+                    ctypes.c_void_p(lam.data_ptr()),
+                    ctypes.c_void_p(v.data_ptr()), b, k, SWEEPS, stream))
+                cfg = (ctypes.c_int * len(eigh_kernel.CONFIG_KEYS))()
+                if lib.jacobi_config(int(kind == "cyclic"), k, cfg) != 0:
+                    raise RuntimeError(f"jacobi_config failed at k={k}")
+                configs[side] = dict(zip(eigh_kernel.CONFIG_KEYS, cfg))
+            res = ab(calls, lambda side: bufs[side])
+            name = "K4" if kind == "cyclic" else "K3"
+            key = f"{variant} {name} [{b},{k},{k}]"
+            out[key] = {**res, "config": configs}
+            print(key, json.dumps(out[key]), flush=True)
     b, k = NS_CASE
     a = spd(b, k, SEED, dev)
     for rmul in (0, 1):

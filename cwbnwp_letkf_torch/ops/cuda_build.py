@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -88,6 +89,29 @@ def load(source: Path) -> ctypes.CDLL:
     if lib is None:
         lib = _libs[source] = ctypes.CDLL(str(build(source)[0]))
     return lib
+
+
+def resources(library: Path) -> dict:
+    """``{entry function: {"registers", "stack", "spill_stores",
+    "spill_loads"}}`` from the compiler's report beside ``library``
+    (``-Xptxas -v``), stack and spills in bytes."""
+    out, entry = {}, None
+    for line in library.with_suffix(".log").read_text().splitlines():
+        found = re.search(r"Compiling entry function '([^']+)'", line)
+        if found:
+            entry = out[found.group(1)] = {}
+            continue
+        if entry is None:
+            continue
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+        if frame:
+            entry.update(zip(("stack", "spill_stores", "spill_loads"),
+                             map(int, frame.groups())))
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            entry["registers"] = int(used.group(1))
+    return out
 
 
 def bound_ms(flop: float, nbytes: float) -> float:

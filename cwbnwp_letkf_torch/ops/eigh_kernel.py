@@ -1,13 +1,14 @@
 """Launch the CUDA Jacobi eigensolvers (``csrc/jacobi_eigh.cu``).
 
-Two kernels, A and V in shared memory (V in the output, in device memory,
-where the two do not fit one block's shared memory: K3 at k >= 172, K4 at
-k >= 171):
+Two kernels:
 
-- ``"parallel"`` (K3, even k >= 4): the Brent-Luk round-robin order, a warp
-  per matrix up to k = 96 (one block of 256 threads per matrix at k = 96,
-  of 512 above), the pairing by the closed form of :func:`ring_pairing`;
-  plain version :func:`cwbnwp_letkf_torch.ops.jacobi_eigh.jacobi_parallel`;
+- ``"parallel"`` (K3, even k >= 4): the Brent-Luk round-robin order.  Up to
+  k = 96 A and V in shared memory, a warp per matrix (one block of 256
+  threads per matrix at k = 96), the pairing by the closed form of
+  :func:`ring_pairing`.  Above 96 one block of 2 k threads per matrix, A
+  alone in shared memory and V in registers in slot order, moved each round
+  by the fixed permutation of :func:`slot_schedule`; plain version
+  :func:`cwbnwp_letkf_torch.ops.jacobi_eigh.jacobi_parallel`;
 - ``"cyclic"`` (K4, odd k or k < 4): the sequential cyclic-by-row order,
   16 lanes per matrix at k = 41 (two matrices a warp) and a warp per matrix
   at any other k, up to four warps a block (one warp a block above
@@ -15,7 +16,9 @@ k >= 171):
   column p, V's column p and A's diagonal at the indices it owns in
   registers, computes each rotation's 2x2 itself from entries shuffled
   ahead from their owner, and ends each rotation with one ``__syncwarp``;
-  plain version
+  A and V in shared memory (V in the output, in device memory, at
+  k >= 171, where the two do not fit one block's shared memory); plain
+  version
   :func:`cwbnwp_letkf_torch.ops.jacobi_eigh.jacobi_cyclic`.
 
 :func:`cwbnwp_letkf_torch.ops.jacobi_eigh.jacobi_eigh` sends CUDA tensors
@@ -24,6 +27,7 @@ here.  The library is built by :mod:`.cuda_build` at first use.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -41,6 +45,10 @@ MAX_K = 177
 SOURCE = cuda_build.CSRC / "jacobi_eigh.cu"
 
 _fns: dict = {}
+
+#: the fields of ``jacobi_config``'s output, in order
+CONFIG_KEYS = ("threads", "smem_bytes", "registers", "matrices", "blocks_per_sm",
+               "v_in_device_memory", "v_in_registers")
 
 
 def kernel_for(k: int) -> str:
@@ -69,6 +77,39 @@ def ring_pairing(k: int, r: int) -> list:
     return top + bot
 
 
+class SlotSchedule(NamedTuple):
+    """K3's layout above k = 96 (:func:`slot_schedule`)."""
+
+    #: the index slot ``s`` holds in round 0: ``[top | bot] = [0 .. m-1 | m .. k-1]``
+    order: list
+    #: between rounds slot ``s`` takes the value slot ``move[s]`` held
+    move: list
+    #: ``P``: register pairs a half row of V, ``ceil(m / 2)``
+    pairs: int
+    #: ``L0``: the pairs of half 0, ``m - P`` (``P - 1`` or ``P``)
+    first_half: int
+
+
+def slot_schedule(k: int) -> SlotSchedule:
+    """How K3 holds V above k = 96: row by row in slot order, where slot
+    ``i < m`` is ``top_i`` and slot ``m + i`` is ``bot_i`` of the round at
+    hand.  A round rotates slots ``(i, m + i)``; then every slot takes the
+    value of slot ``move[s]``, so that slot order follows the pairing:
+    ``top' = [top_0, bot_0, top_1 .. top_{m-2}]``, ``bot' = [bot_1 ..
+    bot_{m-1}, top_{m-1}]``.  After ``r`` rounds the slots hold
+    ``ring_pairing(k, r)``, and after the last round they are the output's
+    columns.  Thread ``2 row + g`` holds half ``g`` of a row: pairs ``0 ..
+    L0 - 1`` for ``g = 0`` and ``L0 .. m - 1`` for ``g = 1``, each in ``P``
+    register pairs (half 0's last one a spare where ``L0 = P - 1``).
+    """
+    if k < 4 or k % 2:
+        raise ValueError(f"round-robin Jacobi needs an even k >= 4, got {k}")
+    m = k // 2
+    move = ([0, m] + list(range(1, m - 1)) + list(range(m + 1, k)) + [m - 1])
+    pairs = (m + 1) // 2
+    return SlotSchedule(list(range(k)), move, pairs, m - pairs)
+
+
 def work(name: str, batch: int, k: int, sweeps: int = 7):
     """``(flop, bytes)`` of ``sweeps`` Jacobi sweeps over a ``[batch, k, k]``
     batch by kernel ``name`` (``"parallel"`` or ``"cyclic"``).
@@ -93,18 +134,18 @@ def config(k: int) -> dict:
     """What a launch at ensemble size ``k`` uses on the current card, for
     the kernel :func:`kernel_for` picks: ``threads`` and ``matrices`` per
     block, dynamic ``smem_bytes``, ``registers`` per thread, resident
-    ``blocks_per_sm`` and ``matrices_per_sm``, and ``v_in_device_memory``
-    (1 where V lives in the output).  Builds the library if need be;
+    ``blocks_per_sm`` and ``matrices_per_sm``, ``v_in_device_memory`` (1
+    where V lives in the output) and ``v_in_registers`` (1 where it lives in
+    registers; both 0: in shared memory).  Builds the library if need be;
     launches nothing."""
     fn = cuda_build.load(SOURCE).jacobi_config
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    out = (ctypes.c_int * 6)()
+    out = (ctypes.c_int * len(CONFIG_KEYS))()
     rc = fn(int(kernel_for(k) == "cyclic"), int(k), out)
     if rc != 0:
         raise RuntimeError(f"jacobi_config failed: CUDA error {rc}")
-    cfg = dict(zip(("threads", "smem_bytes", "registers", "matrices",
-                    "blocks_per_sm", "v_in_device_memory"), out))
+    cfg = dict(zip(CONFIG_KEYS, out))
     cfg["matrices_per_sm"] = cfg["matrices"] * cfg["blocks_per_sm"]
     return cfg
 

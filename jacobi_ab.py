@@ -3,19 +3,20 @@ source on one card, each build held bit for bit against the plain version.
 
     git show <rev>:cwbnwp_letkf_torch/csrc/jacobi_eigh.cu > .proof/jacobi_eigh_parent.cu
     python3 jacobi_ab.py .proof/jacobi_eigh_parent.cu [--kernel parallel|cyclic]
-                         [--sass FILE] [name=old>>>new ...]
+                         [--shapes main|large] [--sass FILE] [name=old>>>new ...]
 
 Builds the given source (``base``), the working tree's (``tree``) and each
 variant (``tree`` with the text ``old`` replaced by ``new``, written beside
 the given source) with one ``cuda_build.build``, and prints the registers and
 spills of each build's kernels from its ``.log``.  Then, at the kernel's
-``chip_smoke.JACOBI_SHAPES``, it times every build on the same ``Y Y^T +
-(k-1)/1.6 I`` inputs in the order base, tree, variants, then back (median of
-5 warm runs each, CUDA events), with the share of the bound and of twice the
-bound: each product is rounded on its own, so one flop is one instruction
-and twice the bound is the issue floor.  ``--sass`` writes ``cuobjdump -sass``
-of the tree's build and prints the instruction mix of each kernel's longest
-and innermost loops.  Exits 1 if a build differs from the plain version.
+``chip_smoke.JACOBI_SHAPES`` (``--shapes large``: ``LARGE_JACOBI_SHAPES``,
+k above 96), it times every build on the same ``Y Y^T + (k-1)/1.6 I`` inputs
+in the order base, tree, variants, then back (median of 5 warm runs each,
+CUDA events), with the share of the bound and of twice the bound: each
+product is rounded on its own, so one flop is one instruction and twice the
+bound is the issue floor.  ``--sass`` writes ``cuobjdump -sass`` of the
+tree's build and prints the instruction mix of each kernel's longest and
+innermost loops.  Exits 1 if a build differs from the plain version.
 """
 from __future__ import annotations
 
@@ -71,6 +72,7 @@ def main(argv=None) -> int:
     ap.add_argument("base", type=Path, help="the other revision's jacobi_eigh.cu")
     ap.add_argument("variants", nargs="*", help="name=old>>>new")
     ap.add_argument("--kernel", choices=("parallel", "cyclic"), default="parallel")
+    ap.add_argument("--shapes", choices=("main", "large"), default="main")
     ap.add_argument("--sass", type=Path, help="write the tree build's SASS here")
     args = ap.parse_intermixed_args(argv)
     if not torch.cuda.is_available():
@@ -97,13 +99,8 @@ def main(argv=None) -> int:
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fns[name] = fn
-        log = lib.with_suffix(".log").read_text().splitlines()
-        for i, line in enumerate(log):
-            if "Compiling entry function" in line:
-                entry = line.split("'")[1]
-                props = " | ".join(x.strip() for x in log[i + 1:i + 5]
-                                   if "spill" in x or "registers" in x)
-                print(f"  {name}: {entry[-48:]}: {props}")
+        for entry, res in cuda_build.resources(lib).items():
+            print(f"  {name}: {entry[-48:]}: {res}")
     if args.sass:
         cuobjdump = Path(cuda_build._nvcc()).with_name("cuobjdump")
         sass = subprocess.run([str(cuobjdump), "-sass", str(libs["tree"])],
@@ -116,7 +113,9 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(7)
     order = list(fns) + list(reversed(fns))
     ok = True
-    for b, k in chip_smoke.JACOBI_SHAPES[f"jacobi_{args.kernel}"]:
+    shapes = (chip_smoke.JACOBI_SHAPES if args.shapes == "main"
+              else chip_smoke.LARGE_JACOBI_SHAPES)
+    for b, k in shapes[f"jacobi_{args.kernel}"]:
         a = chip_smoke.normal_matrices(rng, b, k, dev)
         a += (k - 1) / 1.6 * torch.eye(k, device=dev)
         lam_p, v_p = plain(a)

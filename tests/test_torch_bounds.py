@@ -23,6 +23,7 @@ SHAPES = [
     # the large-ensemble shapes of chip_smoke.py phase 17
     ("K1 [2048,128,128]", ns_kernel.work(2048, 128, 5), 128.85e9, 1.923),
     ("K3 [1024,128,128]", eigh_kernel.work("parallel", 1024, 128), 134.23e9, 2.004),
+    ("K3 [512,160,160]", eigh_kernel.work("parallel", 512, 160), 131.29e9, 1.960),
     ("K3 [256,176,176]", eigh_kernel.work("parallel", 256, 176), 87.43e9, 1.305),
     ("K4 [256,129,129]", eigh_kernel.work("cyclic", 256, 129), 34.35e9, 0.513),
     ("K4 [64,177,177]", eigh_kernel.work("cyclic", 64, 177), 22.23e9, 0.332),

@@ -281,16 +281,20 @@ def test_jacobi_cyclic_partition_edges(cuda, k, b):
     assert torch.equal(lam, lam_p) and torch.equal(v, v_p)
 
 
-@pytest.mark.parametrize("b", [1, 3])
-@pytest.mark.parametrize("k", [98, 128, 170, 172, 176])
+@pytest.mark.parametrize("b", [1, 3, 133])
+@pytest.mark.parametrize("k", [98, 100, 126, 128, 130, 142, 160, 170, 172,
+                               174, 176])
 def test_jacobi_parallel_large_k(cuda, k, b):
-    """K3 above k = 96, a 512-thread block per matrix, bit for bit against
-    its plain version: V in shared memory through k = 170 and in device
-    memory from 172, where the output is gathered through A's shared
-    memory.  Two sweeps, to keep the plain version short."""
+    """K3 above k = 96, a block of 2 k threads per matrix with V in
+    registers, bit for bit against its plain version: odd m with half 0's
+    spare register pair (98, 126, 130, 142, 170, 174), even m (100, 128,
+    160, 172, 176), the instances at two matrices an SM (k <= 128) and at
+    one; a batch of 133 is more than one wave of 132 SMs.  V is never in
+    device memory.  Two sweeps, to keep the plain version short."""
     rng = np.random.default_rng(600 + k + b)
     a = torch.from_numpy(spd_case(rng, b, k)).to(cuda)
-    assert eigh_kernel.config(k)["v_in_device_memory"] == int(k >= 172)
+    cfg = eigh_kernel.config(k)
+    assert cfg["v_in_device_memory"] == 0 and cfg["v_in_registers"] == 1
     lam, v = eigh_kernel.launch(a, sweeps=2)
     lam_p, v_p = jacobi_parallel(a, sweeps=2)
     assert torch.equal(lam, lam_p) and torch.equal(v, v_p)
@@ -321,19 +325,36 @@ def test_jacobi_cyclic_nan_matrix_leaves_its_neighbours(cuda):
     assert not bool(torch.isfinite(lam[2]).all())
 
 
+def test_jacobi_parallel_nan_matrix_leaves_its_neighbours(cuda):
+    """K3 at k = 128, two matrices an SM: a NaN stays in its matrix, and the
+    matrices beside it, on its SM and after it, equal the plain version."""
+    a = torch.from_numpy(spd_case(np.random.default_rng(78), 6, 128)).to(cuda)
+    a[2, 0, 1] = float("nan")
+    assert eigh_kernel.config(128)["matrices_per_sm"] >= 2
+    lam, v = eigh_kernel.launch(a, sweeps=2)
+    lam_p, v_p = jacobi_parallel(a, sweeps=2)
+    keep = [0, 1, 3, 4, 5]
+    assert torch.equal(lam[keep], lam_p[keep]) and torch.equal(v[keep], v_p[keep])
+    assert not bool(torch.isfinite(lam[2]).all())
+
+
 @pytest.mark.parametrize("k,threads,matrices", [(41, 128, 8), (9, 128, 4),
                                                 (40, 128, 4), (96, 256, 1),
-                                                (128, 512, 1), (176, 512, 1),
-                                                (129, 32, 1), (177, 32, 1)])
+                                                (128, 256, 1), (98, 224, 1),
+                                                (176, 352, 1), (129, 32, 1),
+                                                (177, 32, 1)])
 def test_jacobi_config(cuda, k, threads, matrices):
     """The launch shapes: four warps a block of two k=41 matrices each (K4),
     of one matrix at any other k (K4, and K3 at k=40), one 256-thread block
-    per k=96 matrix (K3); above k = 96 a 512-thread block per matrix (K3)
-    and one warp a block (K4)."""
+    per k=96 matrix (K3); above k = 96 a block of 2 k threads (rounded up
+    to a warp) per matrix, two resident an SM up to k = 128 (K3), and one
+    warp a block (K4)."""
     cfg = eigh_kernel.config(k)
     assert (cfg["threads"], cfg["matrices"]) == (threads, matrices)
     assert cfg["registers"] > 0 and cfg["blocks_per_sm"] >= 1
     assert cfg["matrices_per_sm"] == matrices * cfg["blocks_per_sm"]
+    if eigh_kernel.kernel_for(k) == "parallel" and k > 96:
+        assert cfg["blocks_per_sm"] == (2 if k <= 128 else 1)
 
 
 def test_jacobi_kernel_k96_sweep_level(cuda):
