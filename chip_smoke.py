@@ -13,6 +13,9 @@ Phases, in order; any failure raises and the exit code is not 0:
    resident blocks, and for the Jacobi kernels resident matrices, per SM);
    K3 above k = 96: V in registers at every even k of 98-176 and no spill
    or stack frame in any of its instances, its launch at phase 17's shapes;
+   K4 above k = 96: V from the rotation log at every odd k of 97-177, no
+   spill or stack frame in the chain's instances, the V pass or the chain
+   floor, and the chain's and the V pass's launch at phase 17's shapes;
 2. K1, the Newton-Schulz kernel, against its plain PyTorch version at the
    main path's stacked shape ``[12288, 40, 40]`` and at ``[2048, 96, 96]``,
    on seeded normal matrices and on ill-conditioned dense-obs ones, with
@@ -154,7 +157,9 @@ Phases, in order; any failure raises and the exit code is not 0:
    176]`` and K4 at ``[256, 129, 129]`` and ``[64, 177, 177]`` bit for bit
    (K4's plain version on the first ``LARGE_PLAIN_BATCH`` matrices), each
    with its bound, the share of it and of the issue floor (twice the
-   bound), plain and ``torch.linalg.eigh`` times; (b) phase 13's case with
+   bound), plain and ``torch.linalg.eigh`` times, K4 also with its chain
+   floor (one link's latency, measured alone, times the rotations and the
+   waves); (b) phase 13's case with
    128 members, the same ``PROD_RUN_SLABS`` slabs by the same runner (K1
    once a chunk, no library solve, no overflow, converged, K1 against its
    plain version on the first real batch, slab
@@ -166,8 +171,12 @@ Phases, in order; any failure raises and the exit code is not 0:
    k = 178 under ``"jacobi"`` and k = 192 under ``"auto"`` on a real
    normal-matrix batch: no kernel launched, ``torch.linalg.eigh`` and the
    ``torch.matmul`` branch counted in ``solver.LIBRARY_SOLVES``, within
-   ``XA_RTOL`` of a float64 solve.  Each kernel's record gains the phase's
-   measurements (``large_k``), error and launches.
+   ``XA_RTOL`` of a float64 solve; (e) the CLI at ``nmember = 129`` on the
+   same case builder and grid with ``--device-breakdown``, on the card only
+   (K4 above k = 96 in the breakdown's eigh stage, its time printed; the
+   ``torch.matmul`` branch in the update; T's RMSE lower).  Each kernel's
+   record gains the phase's measurements (``large_k``), error and
+   launches.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after; the launches made to compare a kernel with its plain
@@ -314,6 +323,10 @@ LARGE_LAM_ATOL = 1e-3
 #: generate_case's case with LARGE_K members on LARGE_CLI_GRID
 LARGE_K = 128
 LARGE_CLI_GRID = dict(nx=16, ny=14, nz=4, n_obs=30)
+#: (e) the CLI at this nmember on LARGE_CLI_GRID: the first odd k above 96
+#: whose eigen factors take K4 above k = 96 (its Newton-Schulz solve takes
+#: the torch.matmul branch above K1's 128)
+LARGE_K4_CLI = 129
 #: (d) the branches above the kernels: (k, backend) on the first
 #: ABOVE_POINTS points of the first chunk of the bench grid's lowest
 #: ABOVE_NZ levels, for the production groups ABOVE_GROUPS (U, V at
@@ -2425,13 +2438,65 @@ def check_large_k3(library):
           f"k of 98-176 ({len(big)} instances)")
 
 
+def check_large_k4(library):
+    """Phase 1: K4 above k = 96 runs the chain (one instance a slot count,
+    ``ceil(k / lanes)``) and the V pass from the rotation log, and no
+    instance of either,
+    nor the chain-floor kernel, spills or keeps an array in local memory
+    (the compiler's report of ``library``); V comes from the log at every
+    odd k of 97-177; prints the launch at the large shapes: threads, shared
+    memory, registers, spills, matrices a block and an SM, and where V
+    lives."""
+    from cwbnwp_letkf_torch.ops import cuda_build, eigh_kernel
+
+    res = cuda_build.resources(library)
+    chain = {int(re.search(r"chain_kernelILi(\d+)ELb0E", entry).group(1)): r
+             for entry, r in res.items()
+             if re.search(r"jacobi_cyclic_chain_kernelILi\d+ELb0E", entry)}
+    other = {name: r for name in ("jacobi_cyclic_v_kernel",
+                                  "jacobi_chain_floor_kernel")
+             for entry, r in res.items() if name in entry}
+    lanes = eigh_kernel.config(97)["threads"]
+    check(sorted(chain) == sorted({-(-k // lanes) for k in range(97, 178, 2)}),
+          f"K4 above 96: chain instances {sorted(chain)} at {lanes} lanes")
+    check(sorted(other) == ["jacobi_chain_floor_kernel", "jacobi_cyclic_v_kernel"],
+          f"K4 above 96: V pass or chain floor missing: {sorted(other)}")
+    for name, r in [(f"chain S={s}", r) for s, r in sorted(chain.items())] + \
+            sorted(other.items()):
+        check(r["spill_stores"] == r["spill_loads"] == r["stack"] == 0,
+              f"K4 above 96, {name}: local memory {r}")
+    for k in range(97, eigh_kernel.MAX_K + 1, 2):
+        cfg = eigh_kernel.config(k)
+        check(cfg["v_from_log"] == 1 and cfg["v_in_device_memory"] == 0,
+              f"K4 at k={k}: V not from the log: {cfg}")
+    vres = other["jacobi_cyclic_v_kernel"]
+    for _, k in LARGE_JACOBI_SHAPES["jacobi_cyclic"]:
+        cfg, r = eigh_kernel.config(k), chain[-(-k // lanes)]
+        print(f"  K4 at k={k}: the chain {cfg['threads']} threads, "
+              f"{cfg['smem_bytes']} bytes of shared memory (A alone), "
+              f"{r['registers']} registers, spills {r['spill_stores']} / "
+              f"{r['spill_loads']} bytes, stack {r['stack']} bytes; "
+              f"{cfg['matrices']} matrix a block, {cfg['matrices_per_sm']} an SM; "
+              f"V from the log by the V pass: {(k + 31) // 32} blocks of 32 "
+              f"threads a matrix, {4 * ((64 + 33 * k + 3) // 4 * 4)} bytes of shared memory, "
+              f"{vres['registers']} registers, spills {vres['spill_stores']} / "
+              f"{vres['spill_loads']} bytes; the log "
+              f"{eigh_kernel.log_bytes(k)} bytes a matrix in device memory")
+    print(f"  K4 above 96: V from the log and no local memory at every odd k "
+          f"of 97-177 ({len(chain)} chain instances, the V pass, the chain "
+          f"floor)")
+
+
 def phase_large_kernels(dev):
     """Phase 17(a): every kernel against its plain version at the large
     shapes; returns ``{kernel: [measured record, ...]}``, one a shape.  K1
     and K2 by phase 2's rule (their plain ``ns_invsqrt`` is the card's
     ``torch.matmul`` branch above k = 128, the path K1 would give way to);
     K3 and K4 bit for bit, with ``LARGE_REC_TOL``, each plain version timed
-    on its one comparison run (K4's on ``LARGE_PLAIN_BATCH`` matrices)."""
+    on its one comparison run (K4's on ``LARGE_PLAIN_BATCH`` matrices); K4
+    with its chain floor (``layout_ab.chain_floor``) beside its bound."""
+    from cwbnwp_letkf_torch.examples import layout_ab
+
     out = {}
     for packing, name in (("trio", "ns_invsqrt"), ("rmul", "ns_invsqrt_rmul")):
         entry = phase_kernel(dev, np.random.default_rng(SEED + 17),
@@ -2456,6 +2521,18 @@ def phase_large_kernels(dev):
                 plain_batch=LARGE_PLAIN_BATCH if name == "jacobi_cyclic"
                 else b)
             entry["shape"] = [b, k, k]
+            if name == "jacobi_cyclic":
+                floor = layout_ab.chain_floor(a)
+                entry["chain_floor_ms"] = floor["chain_floor_ms"]
+                entry["chain_link_ns"] = floor["link_ns"]
+                print(f"  [{b},{k},{k}] K4's chain floor {floor['chain_floor_ms']:.4f}"
+                      f" ms ({floor['link_ns']:.2f} ns a link, one warp alone, "
+                      f"median of 5; {floor['matrices_per_sm']} matrices an SM, "
+                      f"{floor['waves']} wave(s)) beside its bound "
+                      f"{entry['bound_ms']:.4f} ms and issue floor "
+                      f"{2 * entry['bound_ms']:.4f} ms: kernel "
+                      f"{entry['ms']:.4f} ms, {floor['chain_floor_ms'] / entry['ms']:.3f}"
+                      f" of the chain floor")
             out[name].append(entry)
     return out
 
@@ -2514,6 +2591,50 @@ def phase_large_cli(dev, root):
           f"increment {gaps}; T RMSE prior {scores['rmse_prior']:.4f} -> "
           f"analysis {scores['rmse_analysis']:.4f}")
     return counts
+
+
+def phase_large_cli_k4(root):
+    """Phase 17(e): K4 above k = 96 on a real path: phase 10(a)'s case
+    builder (``generate_case``) with ``LARGE_K4_CLI`` members on
+    ``LARGE_CLI_GRID``, the CLI on the card with ``--device-breakdown``,
+    whose eigh stage (``"auto"``'s eigen factors) launches K4 at k = 129
+    (the Newton-Schulz solves take the ``torch.matmul`` branch above K1's
+    range, counted; no ``torch.linalg.eigh``).  Card only: the analysis
+    mean's T finite and its RMSE below the prior's.  Returns K4's launches
+    and the eigh stage's ms."""
+    from cwbnwp_letkf_torch.synthetic_case import generate_case, score_case
+
+    d = root / "large_cli_k4"
+    k = LARGE_K4_CLI
+    case = generate_case(str(d / "in"), k=k, **LARGE_CLI_GRID)
+    reset_counts()
+    wall, _ = run_cli("--input", d / "in", "--output", d / "card", "--quiet",
+                      "--device-breakdown", "--metrics-json", d / "m.json")
+    counts = read_counts()
+    lib = read_library()
+    bd = json.loads((d / "m.json").read_text()).get("device_breakdown")
+    check(bd is not None, f"k={k} CLI: no device_breakdown in the metrics")
+    eigh_ms = 1e3 * bd["eigh_s"]
+    print(f"  generate_case k={case.k}, {case.nx}x{case.ny}x{case.nz}, "
+          f"{len(case.obs_lon)} stations: CLI on the card {wall:.3f} s, kernel "
+          f"launches {counts}, library solves {lib}; device_breakdown {bd}")
+    print(f"  k={k} CLI: the breakdown's eigh stage {eigh_ms:.4f} ms (best of "
+          f"its runs) over {bd['points']} points, {counts['jacobi_cyclic']} K4 "
+          f"launches")
+    check(counts["jacobi_cyclic"] > 0, f"k={k} CLI: K4 not launched in the "
+                                       f"breakdown")
+    check(counts["ns_invsqrt"] == counts["ns_invsqrt_rmul"] ==
+          counts["jacobi_parallel"] == 0,
+          f"k={k} CLI: other kernels launched: {counts}")
+    check(lib["ns_matmul"] > 0 and lib["linalg_eigh"] == 0,
+          f"k={k} CLI: library solves {lib}")
+    scores = score_case(case, str(d / "card"))
+    print(f"  k={k} CLI: T RMSE prior {scores['rmse_prior']:.4f} -> analysis "
+          f"{scores['rmse_analysis']:.4f}")
+    check(np.isfinite(scores["rmse_analysis"]) and
+          scores["rmse_analysis"] < scores["rmse_prior"],
+          f"k={k} CLI: T RMSE {scores}")
+    return counts["jacobi_cyclic"], eigh_ms
 
 
 def phase_above(dev):
@@ -2617,6 +2738,9 @@ def phase_large(dev, smi_line, root):
     t0 = time.time()
     phase_above(dev)
     print(f"  (d) in {time.time() - t0:.1f} s")
+    t0 = time.time()
+    launches_k4, eigh_ms_k4 = phase_large_cli_k4(root)
+    print(f"  (e) in {time.time() - t0:.1f} s")
     out = {}
     for name, entries in timed.items():
         err = max(e["max_abs_err"] for e in entries)
@@ -2628,6 +2752,9 @@ def phase_large(dev, smi_line, root):
         "prod_shape_k128": launches_prod, "cli_k128": cli_counts["ns_invsqrt"]}
     out["jacobi_parallel"]["launches_large_k"] = {
         "cli_breakdown_k128": cli_counts["jacobi_parallel"]}
+    out["jacobi_cyclic"]["launches_large_k"] = {
+        "cli_breakdown_k129": launches_k4}
+    out["jacobi_cyclic"]["cli_breakdown_k129_eigh_ms"] = eigh_ms_k4
     print(f"  phase 17 in {time.time() - t_all:.1f} s")
     return out
 
@@ -2878,6 +3005,7 @@ def main():
             for _, k in pairs:
                 print(f"  {name} at k={k}: {eigh_kernel.config(k)}")
     check_large_k3(libs[1])
+    check_large_k4(libs[1])
 
     record = {}
     with torch.inference_mode(), contextlib.ExitStack() as stack:

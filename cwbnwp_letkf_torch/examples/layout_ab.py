@@ -6,12 +6,18 @@ Each alternative is built from the kernel's own source by one textual
 substitution (:data:`VARIANTS`), so the two libraries share every other
 line; a substitution that no longer matches the source raises.
 
-- ``jacobi_v_device``: K4 (``csrc/jacobi_eigh.cu``) with V in device
-  memory at every k above 96.  The source keeps V in shared memory
-  wherever A and V fit one block (through k = 169), which takes one matrix
-  an SM; V in device memory leaves room for two or three.  Timed at
-  ``[256, 129, 129]`` and ``[256, 169, 169]``, seven sweeps.  (K3 keeps V
-  in registers at every k above 96.)
+- ``jacobi_v_consumers``: K4 (``csrc/jacobi_eigh.cu``) above k = 96 with
+  consumer warps in the chain's block that make V from the rotation log as
+  the chain writes it, their rows of V in shared memory after A, where
+  they fit one block (through k = 159), in place of the V pass launched
+  after the chain.  Timed at ``[256, 129, 129]`` and ``[128, 159, 159]``,
+  seven sweeps, each case with K4's chain floor beside it
+  (:func:`chain_floor`).  (K3 keeps V in registers at every k above 96.)
+- ``jacobi_one_warp``: K4's chain above k = 96 on one warp a matrix
+  (``ceil(k / 32)`` indices a lane, ``__syncwarp`` and shuffles) instead
+  of two (a named barrier among the 64 lanes and an exchange in shared
+  memory behind a second one).  Timed at ``[256, 129, 129]`` and ``[64,
+  177, 177]``, seven sweeps, with the chain floor.
 - ``jacobi_two_barriers``: K3 above k = 96 with every warp waiting on the
   barrier that only the warps computing the next round's rotations wait on
   in the source, where the others only arrive: two full barriers a round
@@ -45,10 +51,14 @@ from . import select_device
 
 #: name -> (source, text in it, its replacement)
 VARIANTS = {
-    "jacobi_v_device": (
+    "jacobi_v_consumers": (
         "jacobi_eigh.cu",
-        "  *v_global = cyclic_floats(k, false) * sizeof(float) > optin;\n",
-        "  *v_global = true;\n"),
+        "constexpr bool kVConsumers = false;\n",
+        "constexpr bool kVConsumers = true;\n"),
+    "jacobi_one_warp": (
+        "jacobi_eigh.cu",
+        "constexpr int kChainWarps = 2;\n",
+        "constexpr int kChainWarps = 1;\n"),
     "jacobi_two_barriers": (
         "jacobi_eigh.cu",
         "      bar_arrive(1, threads);\n",
@@ -64,7 +74,8 @@ VARIANTS = {
 
 #: Jacobi variant -> its cases (kernel, batch, k)
 JACOBI_CASES = {
-    "jacobi_v_device": (("cyclic", 256, 129), ("cyclic", 256, 169)),
+    "jacobi_v_consumers": (("cyclic", 256, 129), ("cyclic", 128, 159)),
+    "jacobi_one_warp": (("cyclic", 256, 129), ("cyclic", 64, 177)),
     "jacobi_two_barriers": (("parallel", 1024, 128), ("parallel", 512, 160),
                             ("parallel", 256, 176)),
 }
@@ -116,6 +127,24 @@ def median_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def chain_floor(a: torch.Tensor, sweeps: int = SWEEPS) -> dict:
+    """K4's chain floor on a ``[B, k, k]`` batch: the latency of one link of
+    its sequential chain (``eigh_kernel.chain_floor``: one warp running a
+    matrix's ``sweeps k (k - 1) / 2`` links alone, median of 5 warm runs,
+    CUDA events) times the waves of matrices K4's launch makes (matrices an
+    SM from ``eigh_kernel.config``, the card's SMs): no K4 launch on the
+    batch can be faster.  Returns ``{"link_ns", "matrix_ms",
+    "matrices_per_sm", "waves", "chain_floor_ms"}``."""
+    b, k, _ = a.shape
+    ms = median_ms(lambda: eigh_kernel.chain_floor(a, sweeps=sweeps))
+    per_sm = eigh_kernel.config(k)["matrices_per_sm"]
+    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+    waves = -(-b // (per_sm * sms))
+    return {"link_ns": ms * 1e6 / (sweeps * k * (k - 1) // 2), "matrix_ms": ms,
+            "matrices_per_sm": per_sm, "waves": waves,
+            "chain_floor_ms": ms * waves}
+
+
 def spd(b: int, k: int, seed: int, dev) -> torch.Tensor:
     """``b`` seeded ``x x^T / (2k) + I``, ``x`` a ``k x 2k`` normal draw."""
     x = np.random.default_rng(seed).standard_normal((b, k, 2 * k))
@@ -155,18 +184,23 @@ def run(dev) -> dict:
             bufs = {side: (torch.empty((b, k), device=dev), torch.empty_like(a))
                     for side in ("source", "variant")}
             calls, configs = {}, {}
+            log = torch.empty(b * eigh_kernel.log_bytes(k, SWEEPS),
+                              dtype=torch.uint8, device=dev)
+            extra = (() if kind == "parallel" else
+                     (log.data_ptr() if log.numel() else None, log.numel()))
             for side, lib in zip(("source", "variant"), pairs[variant]):
-                fn = getattr(lib, f"jacobi_{kind}_f32")
+                fn = eigh_kernel.bind(lib, kind)
                 lam, v = bufs[side]
                 calls[side] = (lambda fn=fn, lam=lam, v=v: fn(
-                    ctypes.c_void_p(a.data_ptr()),
-                    ctypes.c_void_p(lam.data_ptr()),
-                    ctypes.c_void_p(v.data_ptr()), b, k, SWEEPS, stream))
+                    a.data_ptr(), lam.data_ptr(), v.data_ptr(), b, k, SWEEPS,
+                    stream.value, *extra))
                 cfg = (ctypes.c_int * len(eigh_kernel.CONFIG_KEYS))()
                 if lib.jacobi_config(int(kind == "cyclic"), k, cfg) != 0:
                     raise RuntimeError(f"jacobi_config failed at k={k}")
                 configs[side] = dict(zip(eigh_kernel.CONFIG_KEYS, cfg))
             res = ab(calls, lambda side: bufs[side])
+            if kind == "cyclic":
+                res["chain_floor"] = chain_floor(a)
             name = "K4" if kind == "cyclic" else "K3"
             key = f"{variant} {name} [{b},{k},{k}]"
             out[key] = {**res, "config": configs}

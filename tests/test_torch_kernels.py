@@ -303,15 +303,67 @@ def test_jacobi_parallel_large_k(cuda, k, b):
 @pytest.mark.parametrize("b", [1, 3])
 @pytest.mark.parametrize("k", [97, 129, 169, 171, 177])
 def test_jacobi_cyclic_large_k(cuda, k, b):
-    """K4 above k = 96, six indices a lane, bit for bit against its plain
-    version: V in shared memory through k = 169 and in device memory from
-    171.  One sweep, to keep the plain version short."""
+    """K4 above k = 96, bit for bit against its plain version: the chain on
+    A alone (two warps and one matrix a block, three matrices an SM through
+    k = 137, two through 169, one above), then V from the rotation log,
+    never in device memory but for the log.  One sweep, to keep the plain
+    version short."""
     rng = np.random.default_rng(700 + k + b)
     a = torch.from_numpy(spd_case(rng, b, k)).to(cuda)
-    assert eigh_kernel.config(k)["v_in_device_memory"] == int(k >= 171)
+    cfg = eigh_kernel.config(k)
+    assert cfg["v_in_device_memory"] == 0 and cfg["v_from_log"] == 1
+    assert cfg["matrices_per_sm"] >= (3 if k <= 137 else 2 if k <= 169 else 1)
+    before = eigh_kernel.LAUNCHES["cyclic"]
     lam, v = eigh_kernel.launch(a, sweeps=1)
     lam_p, v_p = jacobi_cyclic(a, sweeps=1)
     assert torch.equal(lam, lam_p) and torch.equal(v, v_p)
+    assert eigh_kernel.LAUNCHES["cyclic"] == before + 1
+
+
+@pytest.mark.parametrize("k,b,cap_matrices", [(129, 3 * 132 + 1, None),
+                                              (129, 7, 3), (177, 5, 1)])
+def test_jacobi_cyclic_log_pieces(cuda, monkeypatch, k, b, cap_matrices):
+    """K4 above k = 96 on a batch of more than one wave at three matrices an
+    SM (3 x 132 + 1), and on batches whose rotation log passes the cap, cut
+    into pieces of ``cap_matrices`` matrices, one launch each: bit for bit
+    against the plain version either way.  One sweep."""
+    if cap_matrices is not None:
+        monkeypatch.setattr(eigh_kernel, "LOG_CAP_BYTES",
+                            cap_matrices * eigh_kernel.log_bytes(k, 1))
+    pieces = eigh_kernel.log_pieces(b, k, 1)
+    assert len(pieces) == (1 if cap_matrices is None else -(-b // cap_matrices))
+    rng = np.random.default_rng(750 + k + b)
+    a = torch.from_numpy(spd_case(rng, b, k)).to(cuda)
+    before = eigh_kernel.LAUNCHES["cyclic"]
+    lam, v = eigh_kernel.launch(a, sweeps=1)
+    lam_p, v_p = jacobi_cyclic(a, sweeps=1)
+    assert torch.equal(lam, lam_p) and torch.equal(v, v_p)
+    assert eigh_kernel.LAUNCHES["cyclic"] == before + len(pieces)
+
+
+def test_schur_fast_paths_are_exact(cuda):
+    """K4's chain above k = 96 divides and takes square roots by the fast
+    paths' own instructions, with no branch, where its range test admits
+    the operands: there they must be the IEEE results, bit for bit, on every
+    float the square root takes (all 1,920,991,232) and on 2^32 random
+    divisions in the window."""
+    got = eigh_kernel.fast_path_check(cuda)
+    print(got)
+    assert got["sqrt_checked"] == 0x7f800000 - 0x0d000000
+    assert got["div_checked"] == 1 << 32
+    assert got["sqrt_differ"] == 0 and got["div_differ"] == 0
+
+
+@pytest.mark.parametrize("k", [97, 129, 177])
+def test_jacobi_chain_floor_runs(cuda, k):
+    """The chain's link alone (``eigh_kernel.chain_floor``) launches, ends
+    finite and counts no K4 launch."""
+    a = torch.from_numpy(spd_case(np.random.default_rng(k), 1, k)).to(cuda)
+    before = dict(eigh_kernel.LAUNCHES)
+    out = eigh_kernel.chain_floor(a, sweeps=1)
+    torch.cuda.synchronize()
+    assert out.shape == (32,) and bool(torch.isfinite(out).all())
+    assert eigh_kernel.LAUNCHES == before
 
 
 def test_jacobi_cyclic_nan_matrix_leaves_its_neighbours(cuda):
@@ -320,6 +372,19 @@ def test_jacobi_cyclic_nan_matrix_leaves_its_neighbours(cuda):
     a[2, 0, 1] = float("nan")
     lam, v = eigh_kernel.launch(a)
     lam_p, v_p = jacobi_cyclic(a)
+    keep = [0, 1, 3, 4]
+    assert torch.equal(lam[keep], lam_p[keep]) and torch.equal(v[keep], v_p[keep])
+    assert not bool(torch.isfinite(lam[2]).all())
+
+
+def test_jacobi_cyclic_nan_matrix_leaves_its_neighbours_above_96(cuda):
+    """K4 at k = 129, three matrices an SM: a NaN stays in its matrix through
+    the chain and the V pass, and the matrices beside it equal the plain
+    version."""
+    a = torch.from_numpy(spd_case(np.random.default_rng(79), 5, 129)).to(cuda)
+    a[2, 0, 1] = float("nan")
+    lam, v = eigh_kernel.launch(a, sweeps=1)
+    lam_p, v_p = jacobi_cyclic(a, sweeps=1)
     keep = [0, 1, 3, 4]
     assert torch.equal(lam[keep], lam_p[keep]) and torch.equal(v[keep], v_p[keep])
     assert not bool(torch.isfinite(lam[2]).all())
@@ -341,14 +406,14 @@ def test_jacobi_parallel_nan_matrix_leaves_its_neighbours(cuda):
 @pytest.mark.parametrize("k,threads,matrices", [(41, 128, 8), (9, 128, 4),
                                                 (40, 128, 4), (96, 256, 1),
                                                 (128, 256, 1), (98, 224, 1),
-                                                (176, 352, 1), (129, 32, 1),
-                                                (177, 32, 1)])
+                                                (176, 352, 1), (129, 64, 1),
+                                                (177, 64, 1)])
 def test_jacobi_config(cuda, k, threads, matrices):
     """The launch shapes: four warps a block of two k=41 matrices each (K4),
     of one matrix at any other k (K4, and K3 at k=40), one 256-thread block
     per k=96 matrix (K3); above k = 96 a block of 2 k threads (rounded up
-    to a warp) per matrix, two resident an SM up to k = 128 (K3), and one
-    warp a block (K4)."""
+    to a warp) per matrix, two resident an SM up to k = 128 (K3), and K4's
+    chain on two warps, one matrix a block."""
     cfg = eigh_kernel.config(k)
     assert (cfg["threads"], cfg["matrices"]) == (threads, matrices)
     assert cfg["registers"] > 0 and cfg["blocks_per_sm"] >= 1
