@@ -100,7 +100,10 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="write run metrics as one JSON line to this path")
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler trace of the update into "
-                        "this directory (a Chrome trace: Perfetto)")
+                        "this directory: the program's spans and the "
+                        "device alone (tracing.maybe_trace; a Chrome "
+                        "trace: Perfetto), and its counters beside it "
+                        "(counters_<pid>_<ms>.json)")
     p.add_argument("--device-breakdown", action="store_true",
                    help="per-stage device time on a sample batch "
                         "(metrics key device_breakdown)")
@@ -181,8 +184,8 @@ def _run(args: argparse.Namespace, device: torch.device, mesh) -> int:
     from .obs.radar import PREFIX_TO_NAME, read_radar_ensemble
     from .parallel import make_mesh
     from .parallel.multihost import member_block
-    from .profiling import maybe_trace
     from .projection import LambertProjection
+    from .tracing import maybe_trace
 
     timer = StageTimer(enabled=not args.quiet)
     metrics = RunMetrics()

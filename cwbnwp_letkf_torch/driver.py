@@ -23,6 +23,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from . import tracing
 from .config import LetkfConfig
 from .metrics import RunMetrics
 from .models.variables import VAR_TABLE
@@ -47,15 +48,17 @@ class StageTimer:
     """Wall-clock stage log (the reference's timer(), mpi_util.f90:66-71)."""
 
     def __init__(self, log=print, enabled: bool = True):
-        self.t0 = time.time()
+        self.t0 = time.perf_counter()
         self.log = log
         self.enabled = enabled
 
     def stamp(self, msg: str):
         if self.enabled:
-            self.log(f"{time.time() - self.t0:7.3f} sec ==========> {msg}")
+            self.log(f"{time.perf_counter() - self.t0:7.3f} sec ==========> "
+                     f"{msg}")
 
 
+@tracing.spanned("driver.prepare")
 def prepare_platforms(
     cfg: LetkfConfig,
     obs_data: Dict[str, PlatformObs],
@@ -121,9 +124,11 @@ def _group_variables(cfg, platforms):
 def _sync(device: torch.device) -> None:
     """Wait for the device, so a stage closed after it holds its own time."""
     if device.type == "cuda":
+        tracing.count_sync()
         torch.cuda.synchronize(device)
 
 
+@tracing.labelled("driver.analysis")
 @torch.inference_mode()
 def run_analysis(
     cfg: LetkfConfig,
@@ -234,8 +239,10 @@ def run_analysis(
             for ivar, vname, spec in members:
                 timer.stamp(f"update {vname}")
                 pts, (ux, uy, uz) = points_for(spec)
-                xb = torch.from_numpy(
-                    ens.load_group([spec], ux, uy, uz)[:, 0, :]).to(device)
+                with tracing.span("driver.load"):
+                    xb_host = ens.load_group([spec], ux, uy, uz)[:, 0, :]
+                with tracing.label("driver.h2d"):
+                    xb = torch.from_numpy(xb_host).to(device)
                 pts_d = torch.from_numpy(pts).to(device)
                 kwargs = dict(
                     inflat=(k_ens - 1) / infl.multi_infl[ivar],
@@ -256,8 +263,10 @@ def run_analysis(
                     xa = update_points(xb, pts_d, platforms, ivar, **kwargs)
                 if spec.tune_q:
                     xa = tune_q(xa)  # letkf_core.f90:252-278
-                ens.store_group([spec], xa.cpu().numpy()[:, None, :],
-                                ux, uy, uz)
+                with tracing.label("driver.d2h"):
+                    xa_host = xa.cpu().numpy()[:, None, :]
+                with tracing.span("driver.store"):
+                    ens.store_group([spec], xa_host, ux, uy, uz)
         ens.finish()
         return ens
 
@@ -305,21 +314,23 @@ def run_analysis(
     def launch(plan):
         specs = [spec for _, _, spec in plan["members"]]
         ux, uy, uz = plan["dims"]
-        t0 = time.time()
-        xb_host = ens.load_group(specs, ux, uy, uz)   # [B, V, k or k_local]
+        t0 = time.perf_counter()
+        with tracing.span("driver.load"):
+            xb_host = ens.load_group(specs, ux, uy, uz)   # [B, V, k or k_local]
         kwargs = dict(weight_function=cfg.weight_function,
                       solver_dtype=solver_dtype, chunk=chunk,
                       max_blocks=plan["budgets"] or None)
         if distributed:
             # this process's member columns -> its point shard, [B/n, V, k]
             xb = member_group_to_points(mesh, xb_host, k_ens)
-            load_s = time.time() - t0
+            load_s = time.perf_counter() - t0
             xa, diag = update_points_cycle_shards(
                 mesh, xb, plan["q_shards"], platforms, plan["groups"],
                 **kwargs)
         else:
-            xb = torch.from_numpy(xb_host).to(device)
-            load_s = time.time() - t0
+            with tracing.label("driver.h2d"):
+                xb = torch.from_numpy(xb_host).to(device)
+            load_s = time.perf_counter() - t0
             if mesh is not None:
                 xa, diag = sharded_update_points_cycle(
                     mesh, xb, plan["pts_d"], platforms, plan["groups"],
@@ -328,10 +339,10 @@ def run_analysis(
                 xa, diag = update_points_cycle(
                     xb, plan["pts_d"], platforms, plan["groups"],
                     return_diagnostics=True, **kwargs)
-        return xa, diag, load_s, time.time() - t0
+        return xa, diag, load_s, time.perf_counter() - t0
 
     def drain(plan, launched):
-        t0 = time.time()
+        t0 = time.perf_counter()
         xa, diag, load_s, launch_s = launched
         members = plan["members"]
         names = [v for _, v, _ in members]
@@ -346,8 +357,10 @@ def run_analysis(
         if distributed:
             xa_host = points_to_member_columns(mesh, xa, k_ens, b)
         else:
-            xa_host = xa.cpu().numpy()
-        ens.store_group(specs, xa_host, *plan["dims"])
+            with tracing.label("driver.d2h"):
+                xa_host = xa.cpu().numpy()
+        with tracing.span("driver.store"):
+            ens.store_group(specs, xa_host, *plan["dims"])
         overflow = int(diag["bucket_overflow"])
         if overflow:
             # planned budgets make this impossible; reaching it means obs
@@ -359,7 +372,7 @@ def run_analysis(
         # the group's own host seconds, its launch and its drain: the
         # update call may return only once the device is done, so the
         # seconds between the two belong to the next group's launch
-        metrics.add_group(names, b, launch_s + time.time() - t0,
+        metrics.add_group(names, b, launch_s + time.perf_counter() - t0,
                           bucket_overflow=overflow,
                           ns_residual=float(diag["ns_residual"]),
                           load_s=load_s)

@@ -48,9 +48,10 @@ class GroupMetrics:
     #: Newton-Schulz convergence certificate: max |ZY - I| at loop exit
     #: (0.0 on eigh backends; > tol means the iteration budget ran out)
     ns_residual: float = 0.0
-    #: host field read + pinned host-to-device copy wall (overlaps the
-    #: previous group's device compute only where that compute is still
-    #: queued when the read starts)
+    #: host seconds of the field read and its host-to-device copy (the
+    #: spans ``driver.load`` and ``driver.h2d``).  The copy is from pageable
+    #: memory and blocking: it waits for the stream to drain, so it holds
+    #: whatever device work of the previous group is still queued
     load_s: float = 0.0
 
 
@@ -66,12 +67,13 @@ class RunMetrics:
     #: the mesh decomposition (the reference's rank->columns ownership dump
     #: to rsl.out.0000, mpi_util.f90:177-187)
     mesh_layout: Optional[dict] = None
-    _t0: float = field(default_factory=time.time)
-    _last: float = field(default_factory=time.time)
+    _t0: float = field(default_factory=time.perf_counter)
+    _last: float = field(default_factory=time.perf_counter)
 
     def stage(self, name: str):
-        """Close the current stage interval under ``name``."""
-        now = time.time()
+        """Close the current stage interval under ``name`` (host seconds on
+        ``time.perf_counter``)."""
+        now = time.perf_counter()
         self.stages[name] = self.stages.get(name, 0.0) + (now - self._last)
         self._last = now
 

@@ -32,6 +32,7 @@ from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
 
+from .. import tracing
 from ..constants import GC1999_SQ
 from .bucketed import (auto_block_size, default_max_blocks, hilbert3,
                        hilbert_blocks, pad_last, required_max_blocks, sq_norm3)
@@ -159,6 +160,7 @@ def _cycle_blocking(dp, masks, wide_h, wide_v, block_size, dtype,
                          centers_w=hb.centers, radii_w=hb.radii)
 
 
+@tracing.labelled("cycle.resolve")
 def _resolve_plans(
     platforms: Sequence[DevicePlatform],
     groups: Sequence[CycleGroup],
@@ -239,6 +241,7 @@ def _resolve_plans(
     return plans
 
 
+@tracing.labelled("accumulate.distance")
 def _group_r2(q_raw, obs_raw, st, ivar, center):
     """Squared normalized distances as the per-group dense path has them.
 
@@ -263,21 +266,24 @@ def _bucketed_cycle_terms(q_raw, plan, groups, weight_function):
     nb, s = cb.n_blocks, cb.block_size
     m = min(plan.budget, nb)
 
-    qw = normalize_coords(q_raw, plan.wide_h, plan.wide_v)
-    dmin = torch.sqrt(sq_norm3(qw[:, None, :] - cb.centers_w[None]).amin(0))
-    reach = torch.sqrt(torch.tensor(GC1999_SQ, dtype=dmin.dtype,
-                                    device=dmin.device)) + cb.radii_w
-    cand = dmin <= reach
-    score = torch.where(cand, dmin - cb.radii_w, float("inf"))
-    idx = torch.topk(-score, m).indices   # best candidates first
-    keep = cand[idx]
-    overflow = cand.sum() - keep.sum()
+    with tracing.span("accumulate.cull"):
+        qw = normalize_coords(q_raw, plan.wide_h, plan.wide_v)
+        dmin = torch.sqrt(sq_norm3(qw[:, None, :] - cb.centers_w[None]).amin(0))
+        reach = torch.sqrt(torch.tensor(GC1999_SQ, dtype=dmin.dtype,
+                                        device=dmin.device)) + cb.radii_w
+        cand = dmin <= reach
+        score = torch.where(cand, dmin - cb.radii_w, float("inf"))
+        idx = torch.topk(-score, m).indices   # best candidates first
+        keep = cand[idx]
+        overflow = cand.sum() - keep.sum()
 
-    obs_c = cb.xyz_raw.view(nb, s, 3)[idx].reshape(m * s, 3)
-    row_mask = (keep[:, None] & cb.rec_mask[idx]).reshape(m * s)
-    used = set(plan.mask_idx)
-    fused_c = {mi: cb.fused_by_mask[mi][idx].reshape(m * s, -1) for mi in used}
-    nvalid_c = {mi: cb.nvalid_by_mask[mi][idx].reshape(m * s) for mi in used}
+        obs_c = cb.xyz_raw.view(nb, s, 3)[idx].reshape(m * s, 3)
+        row_mask = (keep[:, None] & cb.rec_mask[idx]).reshape(m * s)
+        used = set(plan.mask_idx)
+        fused_c = {mi: cb.fused_by_mask[mi][idx].reshape(m * s, -1)
+                   for mi in used}
+        nvalid_c = {mi: cb.nvalid_by_mask[mi][idx].reshape(m * s)
+                    for mi in used}
 
     outs = []
     for ci, gi in enumerate(plan.clients):
@@ -309,6 +315,7 @@ def _subchunk(b: int, chunk: int, subchunk: int) -> Tuple[int, int]:
     return -(-chunk // sub) * sub, sub
 
 
+@tracing.spanned("cycle.plan")
 @torch.inference_mode()
 def plan_cycle_budgets(
     points_xyz: torch.Tensor,
@@ -388,6 +395,7 @@ def _cycle_point_perm(q, plans, point_order="auto"):
     return torch.argsort(keys, stable=True)
 
 
+@tracing.spanned("cycle.accumulate_chunk")
 def accumulate_chunk(q_chunk, plans, groups, *, k: int, weight_function: int,
                      subchunk: int, dtype=torch.float32):
     """Every group's normal terms for one outer chunk of points.
@@ -415,14 +423,18 @@ def accumulate_chunk(q_chunk, plans, groups, *, k: int, weight_function: int,
                 ovf += o
             else:
                 outs = _dense_cycle_terms(qs, plan, groups, weight_function)
-            for ci, gi in enumerate(plan.clients):
-                a_p, g_p, c_p = outs[ci]
-                a[gi, s0:s1] += a_p
-                g[gi, s0:s1] += g_p
-                cnt[gi, s0:s1] += c_p
+            # a label, not a span: these sums, like the fills above, are
+            # the chunk span's own kernels and close its range on the device
+            with tracing.label("accumulate.sum"):
+                for ci, gi in enumerate(plan.clients):
+                    a_p, g_p, c_p = outs[ci]
+                    a[gi, s0:s1] += a_p
+                    g[gi, s0:s1] += g_p
+                    cnt[gi, s0:s1] += c_p
     return a, g, cnt, ovf
 
 
+@tracing.spanned("cycle.update")
 @torch.inference_mode()
 def update_points_cycle(
     xb: torch.Tensor,

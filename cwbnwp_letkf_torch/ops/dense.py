@@ -24,6 +24,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from .. import tracing
 from ..constants import GC1999_SQ
 from ..localization import WEIGHT_GC1999, gaspari_cohn_1999
 from .whiten import ObsStats
@@ -143,26 +144,45 @@ def terms_from_r2(
       row_mask: optional ``[R]`` bool; False rows never contribute.
 
     Returns ``(a_obs [C, k, k], g [C, k], count [C] int32)``.
+
+    Spans ``accumulate.cap`` (the row mask, the cap's threshold and the
+    selection) and ``accumulate.matmul``, the label ``accumulate.weights``;
+    counters ``accumulate.pairs`` (``C x R``, what the product multiplies),
+    ``accumulate.pairs_selected``, and where the multisection runs
+    ``accumulate.cap_points`` (``C``) and ``accumulate.cap_bound`` (rows
+    where the cap binds) (:mod:`..tracing`).
     """
-    c = r2.shape[0]
+    c, r = r2.shape
     kk_k = fused.shape[-1]
     k = int((-1 + (1 + 4 * kk_k) ** 0.5) / 2)   # k*(k+1) = kk_k
     if k * (k + 1) != kk_k:
         raise ValueError(f"table width {kk_k} is not k*(k+1)")
-    if row_mask is not None:
-        r2 = torch.where(row_mask[None, :], r2, float("inf"))
-    if r2.shape[1] > n_max:
-        sel = r2 <= _cap_threshold(r2, n_max, r2_cap)[:, None]
-    else:
-        sel = r2 <= r2_cap
-    r2_sel = torch.where(sel, r2, 0.0)
-    if weight_function == WEIGHT_GC1999:
-        w2 = gaspari_cohn_1999(torch.sqrt(r2_sel))
-    else:
-        w2 = torch.exp(-0.5 * r2_sel)   # (exp(0.25 r2))^-2, letkf_core.f90:444
-    gm = torch.where(sel, w2, 0.0).to(fused.dtype)                 # [C, R]
-    out3 = (gm @ fused).view(c, k, k + 1)
-    count = (sel.to(torch.float32) @ nvalid.to(torch.float32)).to(torch.int32)
+    capped = r > n_max
+    with tracing.span("accumulate.cap"):
+        if row_mask is not None:
+            r2 = torch.where(row_mask[None, :], r2, float("inf"))
+        if capped:
+            sel = r2 <= _cap_threshold(r2, n_max, r2_cap)[:, None]
+        else:
+            sel = r2 <= r2_cap
+    with tracing.label("accumulate.weights"):
+        r2_sel = torch.where(sel, r2, 0.0)
+        if weight_function == WEIGHT_GC1999:
+            w2 = gaspari_cohn_1999(torch.sqrt(r2_sel))
+        else:
+            w2 = torch.exp(-0.5 * r2_sel)   # (exp(0.25 r2))^-2, letkf_core.f90:444
+        gm = torch.where(sel, w2, 0.0).to(fused.dtype)             # [C, R]
+    with tracing.span("accumulate.matmul"):
+        out3 = (gm @ fused).view(c, k, k + 1)
+        count = (sel.to(torch.float32) @ nvalid.to(torch.float32)).to(torch.int32)
+    if tracing.on():
+        with tracing.label("tracing.count"):
+            tracing.count("accumulate.pairs", c * r)
+            tracing.count("accumulate.pairs_selected", sel.sum())
+            if capped:
+                tracing.count("accumulate.cap_points", c)
+                tracing.count("accumulate.cap_bound",
+                              ((r2 <= r2_cap).sum(1) > n_max).sum())
     return out3[:, :, :k], out3[:, :, k], count
 
 

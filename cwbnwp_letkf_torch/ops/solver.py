@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from . import eigh_kernel, ns_kernel
 from .jacobi_eigh import jacobi_eigh
 
@@ -240,6 +241,7 @@ def ns_route(k: int, device) -> str:
     raise ValueError(f"no Newton-Schulz solve for tensors on {device}")
 
 
+@tracing.labelled("solver.ns")
 def _ns_z(a_obs: torch.Tensor, inflat: float):
     """``(z, residual)`` by the branch :func:`ns_route` names: K1, the
     ``torch.matmul`` iteration (counted in ``LIBRARY_SOLVES``), or the plain
@@ -496,6 +498,7 @@ def letkf_solve_group_from_normal(a_obs, g, xb, inflats, has_obs, *,
     return xa
 
 
+@tracing.spanned("solver.solve")
 def letkf_solve_cycle_from_normal(
     a_groups,
     g_groups,
@@ -562,28 +565,31 @@ def letkf_solve_cycle_from_normal(
         z_all, r_val = _ns_z(astack, val)
         resid = torch.maximum(resid, r_val.to(f32))
         off = 0
-        for gi, vis in members:
-            b = a_gs[gi].shape[0]
-            z = z_all[off:off + b]
-            off += b
-            zg = torch.einsum("bij,bj->bi", z, g_gs[gi])
-            u = torch.einsum("bij,bvj->bvi", z, primes[gi][:, vis, :])
-            s = (zg[:, None, :] * u).sum(-1, keepdim=True)
-            xa_sub = means[gi][:, vis, :] + s + sqkm1 * u
-            for j, vi in enumerate(vis):
-                xa_cols[gi][vi] = xa_sub[:, j, :]
+        with tracing.label("solver.apply"):
+            for gi, vis in members:
+                b = a_gs[gi].shape[0]
+                z = z_all[off:off + b]
+                off += b
+                zg = torch.einsum("bij,bj->bi", z, g_gs[gi])
+                u = torch.einsum("bij,bvj->bvi", z, primes[gi][:, vis, :])
+                s = (zg[:, None, :] * u).sum(-1, keepdim=True)
+                xa_sub = means[gi][:, vis, :] + s + sqkm1 * u
+                for j, vi in enumerate(vis):
+                    xa_cols[gi][vi] = xa_sub[:, j, :]
 
     outs = []
     for gi in range(n_groups):
-        xa = _relax_group(torch.stack(xa_cols[gi], 1), primes[gi],
-                          rtpp_alpha_groups[gi], rtps_alpha_groups[gi])
-        outs.append(torch.where(has_obs_groups[gi][:, None, None],
-                                xa.to(xb_groups[gi].dtype), xb_groups[gi]))
+        with tracing.label("solver.relax"):
+            xa = _relax_group(torch.stack(xa_cols[gi], 1), primes[gi],
+                              rtpp_alpha_groups[gi], rtps_alpha_groups[gi])
+            outs.append(torch.where(has_obs_groups[gi][:, None, None],
+                                    xa.to(xb_groups[gi].dtype), xb_groups[gi]))
     if return_diagnostics:
         return outs, {"ns_residual": resid}
     return outs
 
 
+@tracing.spanned("solver.tune_q")
 def tune_q(q: torch.Tensor) -> torch.Tensor:
     """Moisture positivity fix (letkf_tune_q) over the member (last) axis.
 

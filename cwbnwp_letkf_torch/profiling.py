@@ -1,20 +1,15 @@
-"""Profiling: a trace of any region, and the device-time breakdown.
+"""Profiling: the device-time breakdown.
 
 Port of the JAX package's ``profiling.py``.  The reference's only
 instrumentation is root-rank wall-clock stage prints (timer(),
-module_mpi_util.f90:66-71).  Here:
-
-* :func:`maybe_trace` records a ``torch.profiler`` trace of a region (host
-  operators, and the card's kernels and copies when CUDA is available),
-  written as a Chrome trace (view it in Perfetto or ``chrome://tracing``);
-* :func:`device_breakdown` re-runs the update's stages on a sample batch,
-  each timed alone behind a device synchronize: where the device time goes,
-  without a profiler.
+module_mpi_util.f90:66-71).  Here :func:`device_breakdown` re-runs the
+update's stages on a sample batch, each timed alone behind a device
+synchronize: where the device time goes, without a profiler.  A trace of a
+region, with the program's spans and counters, is
+:func:`.tracing.maybe_trace`.
 """
 from __future__ import annotations
 
-import contextlib
-import os
 import time
 from typing import Dict, Optional, Sequence
 
@@ -23,30 +18,14 @@ import torch
 from .ops.dense import dense_platform_terms, fused_platform_table
 from .ops.neighbors import normalize_coords
 from .ops.solver import apply_weight_factors, letkf_weight_factors_from_normal
-
-
-@contextlib.contextmanager
-def maybe_trace(profile_dir: Optional[str]):
-    """Under it, ``torch.profiler`` records the region and writes
-    ``<profile_dir>/trace_<pid>_<ms>.json`` on exit; a no-op when
-    ``profile_dir`` is empty."""
-    if not profile_dir:
-        yield
-        return
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    os.makedirs(profile_dir, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
-        yield
-    prof.export_chrome_trace(os.path.join(
-        profile_dir, f"trace_{os.getpid()}_{int(time.time() * 1e3)}.json"))
+from .tracing import count_sync
 
 
 def _sync(x):
     """Wait for the device that holds ``x`` (a tensor or a tuple of them)."""
     first = x[0] if isinstance(x, (tuple, list)) else x
     if first.device.type == "cuda":
+        count_sync()
         torch.cuda.synchronize(first.device)
     return x
 

@@ -205,12 +205,18 @@ def test_stage_stamps_match_jax(integration, tmp_path, capsys):
 
 
 def test_profile_dir_writes_trace(integration, tmp_path):
+    """The program's spans and the counters beside them
+    (``tracing.maybe_trace``)."""
     trace_dir = tmp_path / "trace"
     _run(cli.main, integration[0], tmp_path / "out", "--profile-dir",
          str(trace_dir))
-    (trace,) = trace_dir.iterdir()
+    (trace,) = trace_dir.glob("trace_*.json")
+    (counts,) = trace_dir.glob("counters_*.json")
+    assert len(list(trace_dir.iterdir())) == 2
     events = json.loads(trace.read_text())["traceEvents"]
-    assert events
+    assert {"driver.prepare", "cycle.update", "solver.solve"} <= {
+        e.get("name") for e in events}
+    assert json.loads(counts.read_text())["accumulate.pairs"] > 0
 
 
 def test_no_obs_is_noop(tmp_path):

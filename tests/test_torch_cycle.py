@@ -148,7 +148,8 @@ def test_port_imports_without_jax():
         "for mod in ('ops.cycle', 'ops.update', 'ops.solver', 'ops.jacobi_eigh', 'ops.eigh_kernel',\n"
         "            'ops.ns_kernel', 'ops.cuda_build', 'driver', 'config', 'projection', 'metrics',\n"
         "            'models.state', 'models.vcoord', 'io.netcdf', 'cli', 'synthetic_case',\n"
-        "            'profiling', 'io.native', 'obs.gts', 'obs.radar', 'ops.neighbors',\n"
+        "            'profiling', 'tracing', 'io.native', 'obs.gts', 'obs.radar',\n"
+        "            'ops.neighbors',\n"
         "            'ops.whiten', 'ops.dense', 'constants', 'obs.synthetic',\n"
         "            'parallel.mesh', 'parallel.update', 'parallel.multihost',\n"
         "            'parallel.scaling_model', 'examples.scaling_bench',\n"
