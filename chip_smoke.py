@@ -16,6 +16,7 @@ Phases, in order; any failure raises and the exit code is not 0:
    K4 above k = 96: V from the rotation log at every odd k of 97-177, no
    spill or stack frame in the chain's instances, the V pass or the chain
    floor, and the chain's and the V pass's launch at phase 17's shapes;
+   the cap search (K5) at phase 18's record counts;
 2. K1, the Newton-Schulz kernel, against its plain PyTorch version at the
    main path's stacked shape ``[12288, 40, 40]`` and at ``[2048, 96, 96]``,
    on seeded normal matrices and on ill-conditioned dense-obs ones, with
@@ -23,7 +24,8 @@ Phases, in order; any failure raises and the exit code is not 0:
 3. the slice: the fused production-grouped cycle (prepare_platform ->
    plan_cycle_budgets -> update_points_cycle -> tune_q) on the bench case,
    327,680 points x 16 variables at k=40, checked for finite values, zero
-   overflow, a converged solve, kernel launches and a lower analysis RMSE;
+   overflow, a converged solve, kernel launches and a lower analysis RMSE
+   (the cap search's launches counted, its first input kept for phase 18);
    then a second, warm run, timed;
 4. K1 against the plain version on the real normal matrices of the cycle's
    first chunk, with its mean steps, time per launch and bound there (the
@@ -176,7 +178,14 @@ Phases, in order; any failure raises and the exit code is not 0:
    (K4 above k = 96 in the breakdown's eigh stage, its time printed; the
    ``torch.matmul`` branch in the update; T's RMSE lower).  Each kernel's
    record gains the phase's measurements (``large_k``), error and
-   launches.
+   launches;
+18. K5, the cap search (``ops/cap_kernel.py``), against its plain version
+   bit for bit (``sel`` and ``over``) at the main path's shapes
+   ``CAP_SHAPES`` (the dense vr platform's subchunk, the production slab's
+   chunk with the bucketed record mask) and on phase 3's first real input,
+   with its time, the plain version's, its bound and the share of it, and
+   the compiler's registers and spills for both instances (any spill or
+   stack frame fails).
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after; the launches made to compare a kernel with its plain
@@ -336,6 +345,13 @@ ABOVE = ((178, "jacobi"), (192, "auto"))
 ABOVE_NZ = 2
 ABOVE_POINTS = 512
 ABOVE_GROUPS = (0, 2)
+#: phase 18, the cap search: (batch, records, records within the radius,
+#: masked share of the records) of the dense vr platform's subchunk (6,033
+#: records, no mask) and of the production slab's chunk (about 14,300
+#: candidate records, the bucketed record mask), and the vr cap
+CAP_SHAPES = {"dense_vr": (512, 6033, 1500, 0.0),
+              "slab": (2048, 14300, 2000, 0.1)}
+CAP_N_MAX = 300
 #: name -> (route, source, the TPU kernel it replaces)
 KERNELS = {
     "ns_invsqrt": ("cuda", "cwbnwp_letkf_torch/csrc/ns_invsqrt.cu",
@@ -346,6 +362,9 @@ KERNELS = {
                         "cwbnwp_letkf_tpu/ops/pallas_eigh.py:144"),
     "jacobi_cyclic": ("cuda", "cwbnwp_letkf_torch/csrc/jacobi_eigh.cu",
                       "cwbnwp_letkf_tpu/ops/pallas_eigh.py:76"),
+    "cap_search": ("cuda", "cwbnwp_letkf_torch/csrc/cap_search.cu",
+                   "replaces no Pallas kernel; JAX _cap_threshold is XLA, "
+                   "cwbnwp_letkf_tpu/ops/dense.py:239"),
 }
 
 
@@ -368,6 +387,24 @@ def median_ms(fn, reps=5):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def queued_ms(fn, reps=20):
+    """The card's time for one call of ``fn``: ``reps`` calls queued behind
+    a 20 ms spin of the card (``torch.cuda._sleep``) and timed with CUDA
+    events, so that the host's time per call does not show where the card's
+    is shorter.  A warm call first."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(20e-3 * 1.98e9))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 @contextlib.contextmanager
@@ -692,8 +729,9 @@ def check_close(xa, ref, xb, what):
 
 
 def phase_slice(dev, case):
-    """Phase 3: returns what phases 4 and 7 need and the kernel launch count."""
-    from cwbnwp_letkf_torch.ops import ns_kernel
+    """Phase 3: returns what phases 4 and 7 need, K1's launch count, and
+    the cap search's launches in the first run with its first input."""
+    from cwbnwp_letkf_torch.ops import cap_kernel, ns_kernel
 
     pts, truth, xb, plats = case
     b = pts.shape[0]
@@ -704,12 +742,18 @@ def phase_slice(dev, case):
     xb_v = xb_d[:, None, :].expand(b, N_VARS, K)   # one field for all columns
 
     reset_counts()
+    cap_before = cap_kernel.LAUNCHES
     t0 = time.time()
-    xa, diag, budgets, dplats, _ = main_path(xb_v, pts_d, plats, groups, dev)
+    with first_input(cap_kernel) as cap_first:
+        xa, diag, budgets, dplats, _ = main_path(xb_v, pts_d, plats, groups,
+                                                 dev)
     torch.cuda.synchronize(dev)
     cold_s = time.time() - t0
     counts = read_counts()
     launches = counts["ns_invsqrt"]
+    cap_launches = cap_kernel.LAUNCHES - cap_before
+    print(f"  first run: cap search launches {cap_launches}")
+    check(cap_launches > 0 and cap_first, "the cycle never took the cap search")
     overflow = int(diag["bucket_overflow"])
     resid = float(diag["ns_residual"])
     print(f"  first run {cold_s:.3f} s: budgets "
@@ -739,7 +783,8 @@ def phase_slice(dev, case):
           f"update_points_cycle alone {cycle_s:.3f} s, "
           f"{b * N_VARS / cycle_s:.1f} var-point updates/s; peak device "
           f"memory {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
-    return pts_d, xb_d, truth_d, xa, dplats, groups, budgets, launches, cycle_s
+    return (pts_d, xb_d, truth_d, xa, dplats, groups, budgets, launches,
+            cycle_s, (cap_launches, cap_first[0]))
 
 
 def phase_real(pts_d, dplats, groups, budgets):
@@ -2972,6 +3017,69 @@ def phase_sharded(dev, smi_line, bench, xa3, cycle3_s, xa8b, d9, obs9,
     return out
 
 
+def phase_cap_search(dev, first):
+    """Phase 18: K5 against its plain version bit for bit at ``CAP_SHAPES``
+    (distances of ``tests/torch_parity.cap_case``) and on ``first``, phase 3's first ``(r2, (row_mask, n_max, r2_cap))``
+    (skipped where None), each shape timed beside the plain version and its
+    bound; the compiler's report for both instances, where any spill or
+    stack frame fails.  Returns K5's part of the kernel record."""
+    from cwbnwp_letkf_torch.constants import GC1999_SQ
+    from cwbnwp_letkf_torch.ops import cap_kernel, cuda_build
+    from tests.torch_parity import cap_case
+
+    lib = cuda_build.build(cap_kernel.SOURCE)[0]
+    report = {name: res for name, res in cuda_build.resources(lib).items()
+              if "cap_search_kernel" in name}
+    for name, res in report.items():
+        print(f"  {name}: {res}")
+        check(res.get("spill_stores", 0) == res.get("spill_loads", 0) == 0
+              and res.get("stack", 0) == 0, f"{name} spills: {res}")
+
+    def same(r2, mask, n_max, r2_cap):
+        sel, over = cap_kernel.launch(r2, mask, n_max, r2_cap)
+        sel_p, over_p = cap_kernel.plain(r2, mask, n_max, r2_cap)
+        torch.cuda.synchronize(dev)
+        bad = int((sel != sel_p).sum()) + int((over != over_p).sum())
+        check(bad == 0, f"cap search: {bad} elements off its plain version")
+        return over
+
+    if first is not None:
+        r2, (mask, n_max, r2_cap) = first
+        over = same(r2, mask, n_max, r2_cap)
+        print(f"  phase 3's first input {tuple(r2.shape)}: bit for bit, "
+              f"cap binds at {int(over.sum())} of {r2.shape[0]} points")
+    rng = np.random.default_rng(SEED + 18)
+    out = {"mismatches": 0,
+           "registers": {n: res.get("registers") for n, res in report.items()},
+           "spill_bytes": {n: res.get("spill_stores", 0)
+                           for n, res in report.items()}}
+    for label, (b, r, inside, masked) in CAP_SHAPES.items():
+        r2, mask = cap_case(rng, b, r, inside, masked)
+        r2 = torch.from_numpy(r2).to(dev)
+        mask = None if mask is None else torch.from_numpy(mask).to(dev)
+        over = same(r2, mask, CAP_N_MAX, GC1999_SQ)
+        def kernel():
+            cap_kernel.launch(r2, mask, CAP_N_MAX, GC1999_SQ)
+
+        def plain():
+            cap_kernel.plain(r2, mask, CAP_N_MAX, GC1999_SQ)
+
+        ms, plain_ms = queued_ms(kernel), queued_ms(plain, reps=5)
+        call_ms = median_ms(kernel, reps=20)
+        entry = timed_entry(0.0, ms, plain_ms, cap_kernel.work(b, r),
+                            call_ms=call_ms, config=cap_kernel.config(r),
+                            cap_bound_rows=int(over.sum()))
+        print(f"  {label} [{b}, {r}], mask {masked}: {ms:.4f} ms on the "
+              f"card ({call_ms:.4f} ms a call timed alone, the wrapper's "
+              f"host time included), plain {plain_ms:.4f} ms "
+              f"({plain_ms / ms:.1f}x), bound {entry['bound_ms']:.4f} ms by "
+              f"{entry['bound_by']}, share {entry['share_of_bound']:.3f}; "
+              f"cap binds at {int(over.sum())} of {b} rows; "
+              f"{entry['config']}")
+        out[label] = entry
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2987,11 +3095,13 @@ def main():
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s)")
 
-    from cwbnwp_letkf_torch.ops import cuda_build, eigh_kernel, ns_kernel
+    from cwbnwp_letkf_torch.ops import (cap_kernel, cuda_build, eigh_kernel,
+                                        ns_kernel)
 
     print("phase 1: build")
     t0 = time.time()
-    libs = cuda_build.build(ns_kernel.SOURCE, eigh_kernel.SOURCE)
+    libs = cuda_build.build(ns_kernel.SOURCE, eigh_kernel.SOURCE,
+                            cap_kernel.SOURCE)
     print(f"  built {[lib.name for lib in libs]} in {time.time() - t0:.2f} s")
     for lib in libs:
         print("  " + lib.with_suffix(".log").read_text().strip()
@@ -3006,6 +3116,8 @@ def main():
                 print(f"  {name} at k={k}: {eigh_kernel.config(k)}")
     check_large_k3(libs[1])
     check_large_k4(libs[1])
+    for _, r, _, _ in CAP_SHAPES.values():
+        print(f"  cap_search at R={r}: {cap_kernel.config(r)}")
 
     record = {}
     with torch.inference_mode(), contextlib.ExitStack() as stack:
@@ -3021,7 +3133,7 @@ def main():
               f"groups, records {[po.nrec for _, po in case[3]]}; built on "
               f"the host in {time.time() - t0:.2f} s")
         pts_d, xb_d, truth_d, xa_ns, dplats, groups, budgets, launches, \
-            cycle3_s = phase_slice(dev, case)
+            cycle3_s, cap3 = phase_slice(dev, case)
         xa3 = xa_ns.cpu()            # phase 15's reference, off the card
 
         print("phase 4: K1 on real normal matrices; eigen-solve controls")
@@ -3131,6 +3243,10 @@ def main():
             record[name].update(keys)
             record[name]["max_abs_err"] = max(record[name]["max_abs_err"],
                                               keys["max_abs_err_large_k"])
+
+        print("phase 18: K5, the cap search")
+        record["cap_search"] = {"launches": cap3[0],
+                                **phase_cap_search(dev, cap3[1])}
     print(f"all phases passed in {time.time() - t_start:.1f} s")
 
     kernels = []

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from .. import tracing
 from ..constants import GC1999_SQ
 from ..localization import WEIGHT_GC1999, gaspari_cohn_1999
+from . import cap_kernel
 from .whiten import ObsStats
 
 #: ``accum_precision`` names of the JAX package (bf16_3x and full float32
@@ -145,12 +146,18 @@ def terms_from_r2(
 
     Returns ``(a_obs [C, k, k], g [C, k], count [C] int32)``.
 
+    Where the multisection runs (``R > n_max``) on float32 CUDA distances,
+    the row mask, the threshold and the selection are one launch of the
+    cap-search kernel (:func:`.cap_kernel.launch`, bit for bit with this
+    function's own code, which every other call takes).
+
     Spans ``accumulate.cap`` (the row mask, the cap's threshold and the
     selection) and ``accumulate.matmul``, the label ``accumulate.weights``;
     counters ``accumulate.pairs`` (``C x R``, what the product multiplies),
-    ``accumulate.pairs_selected``, and where the multisection runs
+    ``accumulate.pairs_selected``, where the multisection runs
     ``accumulate.cap_points`` (``C``) and ``accumulate.cap_bound`` (rows
-    where the cap binds) (:mod:`..tracing`).
+    where the cap binds), and ``accumulate.cap_launches`` (the kernel's
+    launches) (:mod:`..tracing`).
     """
     c, r = r2.shape
     kk_k = fused.shape[-1]
@@ -158,13 +165,19 @@ def terms_from_r2(
     if k * (k + 1) != kk_k:
         raise ValueError(f"table width {kk_k} is not k*(k+1)")
     capped = r > n_max
+    kernel = capped and r2.is_cuda and r2.dtype == torch.float32
     with tracing.span("accumulate.cap"):
-        if row_mask is not None:
-            r2 = torch.where(row_mask[None, :], r2, float("inf"))
-        if capped:
-            sel = r2 <= _cap_threshold(r2, n_max, r2_cap)[:, None]
+        if kernel:
+            # sel is False at masked records, so the weights may read r2
+            # unmasked
+            sel, over = cap_kernel.launch(r2, row_mask, n_max, r2_cap)
         else:
-            sel = r2 <= r2_cap
+            if row_mask is not None:
+                r2 = torch.where(row_mask[None, :], r2, float("inf"))
+            if capped:
+                sel = r2 <= _cap_threshold(r2, n_max, r2_cap)[:, None]
+            else:
+                sel = r2 <= r2_cap
     with tracing.label("accumulate.weights"):
         r2_sel = torch.where(sel, r2, 0.0)
         if weight_function == WEIGHT_GC1999:
@@ -181,8 +194,10 @@ def terms_from_r2(
             tracing.count("accumulate.pairs_selected", sel.sum())
             if capped:
                 tracing.count("accumulate.cap_points", c)
-                tracing.count("accumulate.cap_bound",
-                              ((r2 <= r2_cap).sum(1) > n_max).sum())
+                tracing.count("accumulate.cap_bound", over.sum() if kernel
+                              else ((r2 <= r2_cap).sum(1) > n_max).sum())
+            if kernel:
+                tracing.count("accumulate.cap_launches", 1)
     return out3[:, :, :k], out3[:, :, k], count
 
 

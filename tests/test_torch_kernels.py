@@ -2,7 +2,7 @@
 
 K1 and K2 are the two packings of the Newton-Schulz kernel
 (``csrc/ns_invsqrt.cu``), K3 and K4 the Jacobi eigensolvers
-(``csrc/jacobi_eigh.cu``).
+(``csrc/jacobi_eigh.cu``), K5 the cap search (``csrc/cap_search.cu``).
 
 Every test here needs a CUDA device and ``nvcc``; without a card they skip.
 On the card run them alone, without the JAX test harness:
@@ -13,13 +13,17 @@ import numpy as np
 import pytest
 import torch
 
-from cwbnwp_letkf_torch.ops import eigh_kernel, ns_kernel, solver
+from cwbnwp_letkf_torch import tracing
+from cwbnwp_letkf_torch.constants import GC1999_SQ
+from cwbnwp_letkf_torch.localization import WEIGHT_GAUSSIAN
+from cwbnwp_letkf_torch.ops import (cap_kernel, cuda_build, dense,
+                                    eigh_kernel, ns_kernel, solver)
 from cwbnwp_letkf_torch.ops.jacobi_eigh import (jacobi_cyclic, jacobi_eigh,
                                                 jacobi_parallel)
 
 from .torch_parity import (assert_eigh_close, assert_k96_sweep_level,
-                           assert_ns_close, ill_conditioned_case, normal_case,
-                           spd_case)
+                           assert_ns_close, cap_case, cap_tie_rows,
+                           ill_conditioned_case, normal_case, spd_case)
 
 #: the ensemble sizes of the kernel checks: both Jacobi kernels, odd and
 #: even, below and above a warp, and the production k (above 96: the
@@ -514,3 +518,130 @@ def test_refined_solve_takes_k1_on_card(cuda):
         a, g, xb, inflats, has, solver_dtype=torch.float64, **kw)
     sc = float(ref.abs().max())
     assert float((xa - ref).abs().max()) <= 1e-6 * sc
+
+
+#: K5's shapes: (batch, records, records within the radius, masked share):
+#: the dense vr platform's subchunk (6,033 records), the production slab's
+#: chunk (about 14,300 candidate records, the bucketed mask) and rows past
+#: the shared-memory stage (read from device memory each pass)
+CAP_SHAPES = [(512, 6033, 1500, 0.0), (512, 6033, 1500, 0.1),
+              (2048, 14300, 2000, 0.0), (2048, 14300, 2000, 0.1),
+              (64, 60000, 3000, 0.0), (64, 60000, 3000, 0.1)]
+#: the vr platform's max_lz_pts
+CAP_N_MAX = 300
+#: the longest row staged in shared memory (cap_search.cu: 200 KB of slots)
+CAP_STAGED_MAX_R = 51197
+
+
+def cap_inputs(cuda, rng, b, r, inside, masked):
+    r2, mask = cap_case(rng, b, r, inside, masked)
+    return (torch.from_numpy(r2).to(cuda),
+            None if mask is None else torch.from_numpy(mask).to(cuda))
+
+
+def assert_cap_matches_plain(r2, mask, n_max=CAP_N_MAX):
+    """K5 against its plain version, ``sel`` and ``over`` bit for bit;
+    returns ``over``."""
+    sel, over = cap_kernel.launch(r2, mask, n_max, GC1999_SQ)
+    sel_p, over_p = cap_kernel.plain(r2, mask, n_max, GC1999_SQ)
+    assert torch.equal(sel, sel_p) and torch.equal(over, over_p)
+    return over
+
+
+@pytest.mark.parametrize("b,r,inside,masked", CAP_SHAPES)
+def test_cap_kernel_matches_plain(cuda, b, r, inside, masked):
+    """At the main path's shapes, in each staging regime, with and without a
+    record mask; one launch a call."""
+    r2, mask = cap_inputs(cuda, np.random.default_rng(r + int(10 * masked)),
+                          b, r, inside, masked)
+    before = cap_kernel.LAUNCHES
+    over = assert_cap_matches_plain(r2, mask)
+    assert cap_kernel.LAUNCHES == before + 1
+    assert over.any()
+    assert cap_kernel.config(r)["staged"] == int(r <= CAP_STAGED_MAX_R)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("r", [CAP_N_MAX + 1, 1031, CAP_STAGED_MAX_R,
+                               CAP_STAGED_MAX_R + 1])
+def test_cap_kernel_edges(cuda, r, offset):
+    """Rows at every 4-byte offset in their first slot (a view whose data
+    starts ``offset`` floats into its buffer), ties at the candidates,
+    +inf, NaN, denormals, exactly ``n_max`` and ``n_max + 1`` records
+    inside, rows not over; R = n_max + 1 and either side of the stage's
+    limit; with and without a mask, and at n_max = 0."""
+    rng = np.random.default_rng(r + offset)
+    rows = np.concatenate([cap_tie_rows(r, CAP_N_MAX),
+                           cap_case(rng, 5, r, inside=2 * CAP_N_MAX)[0],
+                           cap_case(rng, 3, r, inside=CAP_N_MAX // 3)[0]])
+    buf = torch.empty(rows.size + offset, device=cuda)
+    r2 = buf[offset:].view(rows.shape)
+    r2.copy_(torch.from_numpy(rows))
+    over = assert_cap_matches_plain(r2, None)
+    assert over.any() and not over.all()
+    mask = torch.from_numpy(rng.random(r) >= 0.2).to(cuda)
+    assert not assert_cap_matches_plain(r2, mask).all()
+    assert_cap_matches_plain(r2, mask, n_max=0)
+
+
+def test_cap_kernel_does_not_sync(cuda):
+    """A launch under ``set_sync_debug_mode("error")`` raises nothing."""
+    r2, mask = cap_inputs(cuda, np.random.default_rng(2), 64, 6033, 1500,
+                          0.1)
+    cap_kernel.launch(r2, mask, CAP_N_MAX, GC1999_SQ)   # builds and loads
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sel, over = cap_kernel.launch(r2, mask, CAP_N_MAX, GC1999_SQ)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    sel_p, over_p = cap_kernel.plain(r2, mask, CAP_N_MAX, GC1999_SQ)
+    assert torch.equal(sel, sel_p) and torch.equal(over, over_p)
+
+
+def test_cap_kernel_config_and_compiler_report(cuda):
+    """Both instances without spills or a stack frame; the slab's rows
+    staged with at least three blocks an SM."""
+    lib = cuda_build.build(cap_kernel.SOURCE)[0]
+    report = {name: res for name, res in cuda_build.resources(lib).items()
+              if "cap_search_kernel" in name}
+    assert len(report) == 2
+    for res in report.values():
+        assert res["spill_stores"] == res["spill_loads"] == 0, report
+        assert res["stack"] == 0, report
+    slab = cap_kernel.config(14300)
+    assert slab["staged"] == 1 and slab["blocks_per_sm"] >= 3, slab
+    assert cap_kernel.config(60000)["staged"] == 0
+
+
+def test_terms_from_r2_takes_the_cap_kernel_on_a_card(cuda):
+    """The capped branch on a CUDA tensor is one K5 launch, and its terms are
+    bit for bit those of the branch's own code (the weights read the
+    masked distances there); traced, ``accumulate.cap_launches`` counts it
+    and ``accumulate.cap_bound`` reads the kernel's ``over``."""
+    rng = np.random.default_rng(9)
+    r2, mask = cap_inputs(cuda, rng, 256, 6033, 1500, 0.1)
+    k = 8
+    fused = torch.from_numpy(
+        rng.standard_normal((6033, k * (k + 1))).astype(np.float32)).to(cuda)
+    nvalid = torch.from_numpy(rng.integers(1, 4, 6033, dtype=np.int32)).to(cuda)
+    before = cap_kernel.LAUNCHES
+    tracing.reset_counters()
+    with tracing.record():
+        a, g, count = dense.terms_from_r2(
+            r2, fused, nvalid, n_max=CAP_N_MAX,
+            weight_function=WEIGHT_GAUSSIAN, row_mask=mask)
+    got = tracing.counters()
+    tracing.reset_counters()
+    assert cap_kernel.LAUNCHES == before + 1
+    assert got["accumulate.cap_launches"] == 1
+
+    r2m = torch.where(mask[None, :], r2, float("inf"))
+    sel = r2m <= dense._cap_threshold(r2m, CAP_N_MAX, GC1999_SQ)[:, None]
+    w2 = torch.exp(-0.5 * torch.where(sel, r2m, 0.0))
+    out = (torch.where(sel, w2, 0.0) @ fused).view(-1, k, k + 1)
+    want = (sel.to(torch.float32) @ nvalid.to(torch.float32)).to(torch.int32)
+    assert torch.equal(a, out[:, :, :k]) and torch.equal(g, out[:, :, k])
+    assert torch.equal(count, want)
+    assert got["accumulate.cap_bound"] == int(
+        ((r2m <= GC1999_SQ).sum(1) > CAP_N_MAX).sum())

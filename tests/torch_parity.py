@@ -13,6 +13,8 @@ import dataclasses
 import numpy as np
 import pytest
 
+from cwbnwp_letkf_torch.constants import GC1999_SQ
+
 K_CYCLE = 12
 
 #: production-shaped grouping as in tests/test_cycle.py, plus a group that no
@@ -136,6 +138,52 @@ def group_fields(k=K_CYCLE):
                     tuple((k - 1) / (1.6 if iv < 3 else 1.1) for iv in ivars),
                     (0.9,) * nv, (0.95,) * nv))
     return out
+
+
+def cap_case(rng, b, r, inside, masked=0.0):
+    """``(r2 [b, r], mask [r] or None)``: squared distances from ``b``
+    points near the middle of a cube to ``r`` records spread over it, about
+    ``inside`` of them within the cap's radius (``GC1999_SQ``) of a point
+    (the cap binds where ``inside`` exceeds ``max_lz_pts``); 5% of the
+    records repeat others, so that distances tie; ``masked`` of the records
+    are False in the mask (no mask at 0)."""
+    radius = float(np.sqrt(GC1999_SQ))
+    side = radius * (4.0 / 3.0 * np.pi * r / inside) ** (1.0 / 3.0)
+    obs = (rng.random((r, 3)) * side).astype(np.float32)
+    n_dup = r // 20
+    obs[rng.choice(r, n_dup, replace=False)] = obs[rng.choice(r, n_dup)]
+    pts = (side / 2 + (rng.random((b, 3)) - 0.5) * radius).astype(np.float32)
+    r2 = np.square(pts[:, None, :] - obs[None]).sum(-1, dtype=np.float32)
+    mask = rng.random(r) >= masked if masked else None
+    return r2, mask
+
+
+def cap_tie_rows(r, n_max):
+    """``[m, r]`` float32 rows that stress the cap search's edges at the cap
+    ``GC1999_SQ``: the first round's candidates themselves, one value
+    throughout, every record at +inf, NaN, zeros and denormals, one spacing
+    either side of a value, the cap itself, and exactly ``n_max`` and
+    ``n_max + 1`` records inside."""
+    f = np.float32
+    lo, hi = f(-1.0), f(GC1999_SQ)
+    cands = np.array([lo + f(i / 16) * (hi - lo) for i in range(1, 16)], f)
+    mid = hi / f(2)
+    near = np.array([np.nextafter(mid, f(0)), mid, np.nextafter(mid, hi)], f)
+    patterns = [
+        cands, np.array([1.0], f), np.array([np.inf], f),
+        np.array([np.nan, 1.0, np.nan, 3.0], f),
+        np.array([0.0, 1e-40, 1e-45, 0.0], f), near,
+        np.array([hi, np.nextafter(hi, f(0)), np.nextafter(hi, f(np.inf))], f),
+        np.concatenate([cands, near, [hi, f(0)]]).astype(f),
+    ]
+    rows = [np.resize(p, r) for p in patterns]
+    rng = np.random.default_rng(r)
+    for inside in (n_max, n_max + 1):
+        row = np.full(r, np.inf, f)
+        row[rng.choice(r, min(inside, r), replace=False)] = \
+            rng.random(min(inside, r)).astype(f) * hi
+        rows.append(row)
+    return np.stack(rows)
 
 
 def spd_case(rng, b, k, cond=10.0):
