@@ -16,7 +16,8 @@ Phases, in order; any failure raises and the exit code is not 0:
    K4 above k = 96: V from the rotation log at every odd k of 97-177, no
    spill or stack frame in the chain's instances, the V pass or the chain
    floor, and the chain's and the V pass's launch at phase 17's shapes;
-   the cap search (K5) at phase 18's record counts;
+   the cap search (K5) at phase 18's record counts; the selected-pair
+   accumulation (K6) at k = 40, 96 and 128;
 2. K1, the Newton-Schulz kernel, against its plain PyTorch version at the
    main path's stacked shape ``[12288, 40, 40]`` and at ``[2048, 96, 96]``,
    on seeded normal matrices and on ill-conditioned dense-obs ones, with
@@ -25,7 +26,8 @@ Phases, in order; any failure raises and the exit code is not 0:
    plan_cycle_budgets -> update_points_cycle -> tune_q) on the bench case,
    327,680 points x 16 variables at k=40, checked for finite values, zero
    overflow, a converged solve, kernel launches and a lower analysis RMSE
-   (the cap search's launches counted, its first input kept for phase 18);
+   (the cap search's and the selected-pair accumulation's launches
+   counted, their first inputs kept for phases 18 and 19);
    then a second, warm run, timed;
 4. K1 against the plain version on the real normal matrices of the cycle's
    first chunk, with its mean steps, time per launch and bound there (the
@@ -185,7 +187,16 @@ Phases, in order; any failure raises and the exit code is not 0:
    chunk with the bucketed record mask) and on phase 3's first real input,
    with its time, the plain version's, its bound and the share of it, and
    the compiler's registers and spills for both instances (any spill or
-   stack frame fails).
+   stack frame fails);
+19. K6, the selected-pair accumulation (``ops/select_kernel.py``), against
+   its plain version (the dense product with the fused rows) within the
+   float32 bound of two orders of the sum, counts equal, at
+   ``SELECT_SHAPES`` (the dense vr subchunk, the slab's chunk with the
+   record mask; K5's selection, k = 96) and on phase 3's first real input,
+   with max |da|, max |dg|, its time, its bound and the share of it, the
+   plain version's time, the library's (``torch.matmul`` of the weights
+   and the fused rows alone) and the compiler's registers and spills for
+   every instance (any spill or stack frame fails).
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after; the launches made to compare a kernel with its plain
@@ -352,6 +363,11 @@ ABOVE_GROUPS = (0, 2)
 CAP_SHAPES = {"dense_vr": (512, 6033, 1500, 0.0),
               "slab": (2048, 14300, 2000, 0.1)}
 CAP_N_MAX = 300
+#: phase 19, the selected-pair accumulation: (points, records, records
+#: within the radius, masked share, k) of the dense vr subchunk and of the
+#: production slab's chunk, K5's selection at the vr cap
+SELECT_SHAPES = {"dense_vr": (512, 6033, 1500, 0.0, 96),
+                 "slab": (2048, 14300, 2000, 0.1, 96)}
 #: name -> (route, source, the TPU kernel it replaces)
 KERNELS = {
     "ns_invsqrt": ("cuda", "cwbnwp_letkf_torch/csrc/ns_invsqrt.cu",
@@ -365,6 +381,9 @@ KERNELS = {
     "cap_search": ("cuda", "cwbnwp_letkf_torch/csrc/cap_search.cu",
                    "replaces no Pallas kernel; JAX _cap_threshold is XLA, "
                    "cwbnwp_letkf_tpu/ops/dense.py:239"),
+    "select_terms": ("cuda", "cwbnwp_letkf_torch/csrc/select_terms.cu",
+                     "replaces no Pallas kernel; the JAX package's dense "
+                     "product is XLA, cwbnwp_letkf_tpu/ops/dense.py:342"),
 }
 
 
@@ -730,8 +749,9 @@ def check_close(xa, ref, xb, what):
 
 def phase_slice(dev, case):
     """Phase 3: returns what phases 4 and 7 need, K1's launch count, and
-    the cap search's launches in the first run with its first input."""
-    from cwbnwp_letkf_torch.ops import cap_kernel, ns_kernel
+    the cap search's and the selected-pair accumulation's launches in the
+    first run, each with its first input."""
+    from cwbnwp_letkf_torch.ops import cap_kernel, ns_kernel, select_kernel
 
     pts, truth, xb, plats = case
     b = pts.shape[0]
@@ -742,9 +762,10 @@ def phase_slice(dev, case):
     xb_v = xb_d[:, None, :].expand(b, N_VARS, K)   # one field for all columns
 
     reset_counts()
-    cap_before = cap_kernel.LAUNCHES
+    cap_before, sel_before = cap_kernel.LAUNCHES, select_kernel.LAUNCHES
     t0 = time.time()
-    with first_input(cap_kernel) as cap_first:
+    with first_input(cap_kernel) as cap_first, \
+            first_input(select_kernel) as sel_first:
         xa, diag, budgets, dplats, _ = main_path(xb_v, pts_d, plats, groups,
                                                  dev)
     torch.cuda.synchronize(dev)
@@ -752,8 +773,12 @@ def phase_slice(dev, case):
     counts = read_counts()
     launches = counts["ns_invsqrt"]
     cap_launches = cap_kernel.LAUNCHES - cap_before
-    print(f"  first run: cap search launches {cap_launches}")
+    sel_launches = select_kernel.LAUNCHES - sel_before
+    print(f"  first run: cap search launches {cap_launches}, selected-pair "
+          f"accumulation launches {sel_launches}")
     check(cap_launches > 0 and cap_first, "the cycle never took the cap search")
+    check(sel_launches == cap_launches and sel_first,
+          "the capped calls did not all take the selected-pair accumulation")
     overflow = int(diag["bucket_overflow"])
     resid = float(diag["ns_residual"])
     print(f"  first run {cold_s:.3f} s: budgets "
@@ -784,7 +809,8 @@ def phase_slice(dev, case):
           f"{b * N_VARS / cycle_s:.1f} var-point updates/s; peak device "
           f"memory {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
     return (pts_d, xb_d, truth_d, xa, dplats, groups, budgets, launches,
-            cycle_s, (cap_launches, cap_first[0]))
+            cycle_s, (cap_launches, cap_first[0]),
+            (sel_launches, sel_first[0]))
 
 
 def phase_real(pts_d, dplats, groups, budgets):
@@ -3080,6 +3106,100 @@ def phase_cap_search(dev, first):
     return out
 
 
+def phase_select_terms(dev, first):
+    """Phase 19: K6 against its plain version at ``SELECT_SHAPES`` (the
+    distances of ``tests/torch_parity.cap_case``, K5's selection, the
+    factors of ``select_stats``) and on ``first``, phase 3's first ``(r2,
+    (sel, bgo, e, nvalid, weight_function))`` (skipped where None): within
+    the float32 bound of two orders of the sum (``select_tolerance``),
+    counts equal.  Each shape is timed beside the plain version, the
+    library's product alone and the bound; the compiler's report for every
+    instance, where any spill or stack frame fails.  Returns K6's part of
+    the kernel record."""
+    from cwbnwp_letkf_torch.constants import GC1999_SQ
+    from cwbnwp_letkf_torch.localization import WEIGHT_GAUSSIAN
+    from cwbnwp_letkf_torch.ops import (cap_kernel, cuda_build, dense,
+                                        select_kernel)
+    from tests.torch_parity import cap_case, select_stats, select_tolerance
+
+    lib = cuda_build.build(select_kernel.SOURCE)[0]
+    report = {name: res for name, res in cuda_build.resources(lib).items()
+              if "select_terms_kernel" in name}
+    for name, res in report.items():
+        print(f"  {name}: {res}")
+        check(res.get("spill_stores", 0) == res.get("spill_loads", 0) == 0
+              and res.get("stack", 0) == 0, f"{name} spills: {res}")
+
+    def same(r2, sel, bgo, e, nvalid, wf):
+        """``(max |da|, max |dg|, the worst gap over its bound)``."""
+        a, g, count = select_kernel.launch(r2, sel, bgo, e, nvalid, wf)
+        a_p, g_p, count_p = select_kernel.plain(r2, sel, bgo, e, nvalid, wf)
+        tol = select_tolerance(r2, sel, (bgo, e), nvalid, wf)
+        torch.cuda.synchronize(dev)
+        k = bgo.shape[-1] - 1
+        da, dg = (a.double() - a_p.double()).abs(), (g.double() - g_p.double()).abs()
+        worst = max(float((da / tol[:, :, :k]).nan_to_num(0.0).max()),
+                    float((dg / tol[:, :, k]).nan_to_num(0.0).max()))
+        check(bool((da <= tol[:, :, :k]).all() and (dg <= tol[:, :, k]).all()),
+              f"selected-pair accumulation off its plain version: {worst:.3f} "
+              "of the bound")
+        check(torch.equal(count, count_p), "selected-pair counts differ")
+        return float(da.max()), float(dg.max()), worst
+
+    if first is not None:
+        r2, args = first
+        da, dg, worst = same(r2, *args)
+        print(f"  phase 3's first input {tuple(r2.shape)}, k = "
+              f"{args[1].shape[-1] - 1}: max|da| {da:.3e}, max|dg| {dg:.3e} "
+              f"({worst:.3f} of the float32 bound), counts equal")
+    rng = np.random.default_rng(SEED + 19)
+    out = {"registers": {n: res.get("registers") for n, res in report.items()},
+           "spill_bytes": {n: res.get("spill_stores", 0)
+                           for n, res in report.items()}}
+    for label, (b, r, inside, masked, k) in SELECT_SHAPES.items():
+        r2, mask = cap_case(rng, b, r, inside, masked)
+        r2 = torch.from_numpy(r2).to(dev)
+        mask = None if mask is None else torch.from_numpy(mask).to(dev)
+        sel, over = cap_kernel.launch(r2, mask, CAP_N_MAX, GC1999_SQ)
+        stats = select_stats(rng, 1, r, k)
+        fused, nvalid = (x.to(dev) for x in dense.fused_platform_table(stats, (True,)))
+        bgo, e = (x.to(dev) for x in dense.pair_factors(stats, ((True,),))[0])
+        wf = WEIGHT_GAUSSIAN
+        da, dg, worst = same(r2, sel, bgo, e, nvalid, wf)
+        pairs = int((sel & (nvalid > 0)[None]).sum())
+        gm = torch.where(sel, torch.exp(-0.5 * r2), 0.0)
+
+        def kernel():
+            select_kernel.launch(r2, sel, bgo, e, nvalid, wf)
+
+        def plain():
+            select_kernel.plain(r2, sel, bgo, e, nvalid, wf)
+
+        def library():
+            torch.matmul(gm, fused)
+
+        ms, plain_ms = queued_ms(kernel), queued_ms(plain, reps=5)
+        library_ms = median_ms(library)
+        call_ms = median_ms(kernel, reps=20)
+        entry = timed_entry(max(da, dg), ms, plain_ms,
+                            select_kernel.work(b, r, k, 1, pairs),
+                            library_ms=library_ms, call_ms=call_ms,
+                            max_abs_da=da, max_abs_dg=dg, share_of_tol=worst,
+                            config=select_kernel.config(k),
+                            selected_pairs=pairs,
+                            cap_bound_rows=int(over.sum()))
+        print(f"  {label} [{b}, {r}], k = {k}, mask {masked}: {ms:.4f} ms on "
+              f"the card ({call_ms:.4f} ms a call timed alone), plain "
+              f"{plain_ms:.4f} ms ({plain_ms / ms:.1f}x), torch.matmul "
+              f"{library_ms:.4f} ms ({library_ms / ms:.1f}x), bound "
+              f"{entry['bound_ms']:.4f} ms by {entry['bound_by']}, share "
+              f"{entry['share_of_bound']:.3f}; {pairs} selected pairs "
+              f"({pairs / (b * r):.2%}); max|da| {da:.3e}, max|dg| {dg:.3e} "
+              f"({worst:.3f} of the bound), counts equal; {entry['config']}")
+        out[label] = entry
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3096,12 +3216,12 @@ def main():
           f"{torch.cuda.device_count()} device(s)")
 
     from cwbnwp_letkf_torch.ops import (cap_kernel, cuda_build, eigh_kernel,
-                                        ns_kernel)
+                                        ns_kernel, select_kernel)
 
     print("phase 1: build")
     t0 = time.time()
     libs = cuda_build.build(ns_kernel.SOURCE, eigh_kernel.SOURCE,
-                            cap_kernel.SOURCE)
+                            cap_kernel.SOURCE, select_kernel.SOURCE)
     print(f"  built {[lib.name for lib in libs]} in {time.time() - t0:.2f} s")
     for lib in libs:
         print("  " + lib.with_suffix(".log").read_text().strip()
@@ -3118,6 +3238,8 @@ def main():
     check_large_k4(libs[1])
     for _, r, _, _ in CAP_SHAPES.values():
         print(f"  cap_search at R={r}: {cap_kernel.config(r)}")
+    for k in (K, 96, LARGE_K):
+        print(f"  select_terms at k={k}: {select_kernel.config(k)}")
 
     record = {}
     with torch.inference_mode(), contextlib.ExitStack() as stack:
@@ -3133,7 +3255,7 @@ def main():
               f"groups, records {[po.nrec for _, po in case[3]]}; built on "
               f"the host in {time.time() - t0:.2f} s")
         pts_d, xb_d, truth_d, xa_ns, dplats, groups, budgets, launches, \
-            cycle3_s, cap3 = phase_slice(dev, case)
+            cycle3_s, cap3, sel3 = phase_slice(dev, case)
         xa3 = xa_ns.cpu()            # phase 15's reference, off the card
 
         print("phase 4: K1 on real normal matrices; eigen-solve controls")
@@ -3247,6 +3369,10 @@ def main():
         print("phase 18: K5, the cap search")
         record["cap_search"] = {"launches": cap3[0],
                                 **phase_cap_search(dev, cap3[1])}
+
+        print("phase 19: K6, the selected-pair accumulation")
+        record["select_terms"] = {"launches": sel3[0],
+                                  **phase_select_terms(dev, sel3[1])}
     print(f"all phases passed in {time.time() - t_start:.1f} s")
 
     kernels = []

@@ -58,24 +58,35 @@ def table_k(width: int) -> int:
 
 
 def cheap_terms(r2, fused, nvalid, *, n_max, weight_function,
-                r2_cap=GC1999_SQ, row_mask=None):
+                r2_cap=GC1999_SQ, row_mask=None, factors=None):
     """``terms_from_r2`` without the cap search, the weights and the
-    accumulation matmul: sums that read every distance and every gathered
-    table row, so the gathers and distances stay in the stage's work."""
+    accumulation: sums that read every distance and every gathered table
+    row (or, where the cycle gathered them instead, factor), so the gathers
+    and distances stay in the stage's work."""
     c = r2.shape[0]
-    k = table_k(fused.shape[-1])
-    s = r2.sum(-1) + (fused.sum() + nvalid.sum()) * 1e-30
-    a = torch.zeros((c, k, k), dtype=fused.dtype, device=r2.device) \
-        + s[:, None, None].to(fused.dtype)
-    g = torch.zeros((c, k), dtype=fused.dtype, device=r2.device)
+    if fused is None:
+        k = factors.bgo.shape[-1] - 1
+        read, dtype = factors.bgo.sum() + factors.e.sum(), factors.bgo.dtype
+    else:
+        k = table_k(fused.shape[-1])
+        read, dtype = fused.sum(), fused.dtype
+    s = r2.sum(-1) + (read + nvalid.sum()) * 1e-30
+    a = torch.zeros((c, k, k), dtype=dtype, device=r2.device) \
+        + s[:, None, None].to(dtype)
+    g = torch.zeros((c, k), dtype=dtype, device=r2.device)
     cnt = torch.ones((c,), dtype=torch.int32, device=r2.device)
     return a, g, cnt
 
 
 def nocap_terms_of(real):
-    """``real`` (``terms_from_r2``) with a cap that never binds."""
+    """``real`` (``terms_from_r2``) with a cap that never binds: the dense
+    product over every record within the radius.  Where the cycle gathered
+    the factors alone (the call it planned is capped, on a card), the rows
+    are multiplied out of them first."""
     def nocap_terms(r2, fused, nvalid, **kw):
         kw["n_max"] = r2.shape[1] + 1
+        if fused is None:
+            fused = dense.fused_rows(kw["factors"])
         return real(r2, fused, nvalid, **kw)
 
     return nocap_terms

@@ -18,7 +18,8 @@ import numpy as np
 import torch
 
 from ..constants import GC1999_SQ
-from .dense import centered_r2, fused_platform_table, terms_from_r2
+from .dense import (PairFactors, centered_r2, fused_platform_table,
+                    gather_blocks, pair_factors, selects_pairs, terms_from_r2)
 from .whiten import ObsStats
 
 
@@ -156,6 +157,8 @@ class BucketedPlatform(NamedTuple):
       center:   [1, 3]     mean of the real records, the dense path's
                            centering point, so the per-pair r2 (hence the
                            cap thresholds) match the dense path's
+      factors:  the table's PairFactors in block order, [NB*S, V, k+1] and
+                [NB*S, V], zero on padding
     """
 
     obs_norm: torch.Tensor
@@ -165,6 +168,7 @@ class BucketedPlatform(NamedTuple):
     centers: torch.Tensor
     radii: torch.Tensor
     center: torch.Tensor
+    factors: PairFactors | None = None
 
     @property
     def n_blocks(self) -> int:
@@ -234,17 +238,21 @@ def bucket_platform(obs_norm: torch.Tensor, stats: ObsStats,
                     dtype=torch.float32) -> BucketedPlatform:
     """Hilbert-sort the records and cut them into blocks of ``block_size``
     (None: :func:`auto_block_size`); the fused table is built in block order
-    (:func:`.dense.fused_platform_table`), so it is the only full table."""
+    (:func:`.dense.fused_platform_table`), so it is the only full table,
+    and its factors beside it (:func:`.dense.pair_factors`)."""
     if block_size is None:
         block_size = auto_block_size(obs_norm)
     hb = hilbert_blocks(obs_norm, block_size)
     nb, s = hb.rec_mask.shape
     fused, nvalid = fused_platform_table(stats, assim_v, order=hb.order,
                                          pad_to=nb * s, dtype=dtype)
+    factors, = pair_factors(stats, (assim_v,), order=hb.order, pad_to=nb * s,
+                            dtype=dtype)
     return BucketedPlatform(obs_norm=hb.obs_s, fused=fused.view(nb, s, -1),
                             nvalid=nvalid.view(nb, s), rec_mask=hb.rec_mask,
                             centers=hb.centers, radii=hb.radii,
-                            center=obs_norm.mean(0, keepdim=True))
+                            center=obs_norm.mean(0, keepdim=True),
+                            factors=factors)
 
 
 def bucketed_platform_terms(
@@ -260,8 +268,10 @@ def bucketed_platform_terms(
 
     A block is a candidate iff some point of the chunk is within
     ``sqrt(r2_cap) + radius`` of its center; the ``max_blocks`` best (by
-    center distance less radius) are gathered.  Returns ``(a_obs [C, k, k],
-    g [C, k], count [C] int32, overflow)``: the dense path's terms whenever
+    center distance less radius) are gathered: their factors where the call
+    sums the selected pairs (:func:`.dense.selects_pairs`), their fused rows
+    where it takes the product.  Returns ``(a_obs [C, k, k], g [C, k],
+    count [C] int32, overflow)``: the dense path's terms whenever
     ``overflow``, the 0-d count of candidate blocks left out, is 0.
     """
     nb, s = bp.n_blocks, bp.block_size
@@ -277,8 +287,14 @@ def bucketed_platform_terms(
 
     obs_c = bp.obs_norm.view(nb, s, 3)[idx].reshape(m * s, 3)
     row_mask = (keep[:, None] & bp.rec_mask[idx]).reshape(m * s)
+    r2 = centered_r2(q_norm, obs_c, bp.center)
+    fused = factors = None
+    if selects_pairs(m * s, n_max, r2.dtype, r2.device, bp.factors):
+        factors = PairFactors(*(gather_blocks(x, nb, idx) for x in bp.factors))
+    else:
+        fused = bp.fused[idx].reshape(m * s, -1)
     a_obs, g, count = terms_from_r2(
-        centered_r2(q_norm, obs_c, bp.center), bp.fused[idx].reshape(m * s, -1),
-        bp.nvalid[idx].reshape(m * s), n_max=n_max,
-        weight_function=weight_function, r2_cap=r2_cap, row_mask=row_mask)
+        r2, fused, bp.nvalid[idx].reshape(m * s), n_max=n_max,
+        weight_function=weight_function, r2_cap=r2_cap, row_mask=row_mask,
+        factors=factors)
     return a_obs, g, count, overflow

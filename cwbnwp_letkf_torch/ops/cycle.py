@@ -14,8 +14,10 @@ platform:
   * the fused tables, one per distinct assimilation mask.
 
 Only the group-specific work repeats per group: the distance matmul, the cap
-threshold, the localization weights and the ``[C, R] @ [R, k*(k+1)]``
-accumulation.  Accumulation runs on sub-chunks of points (default 512: a
+threshold, the localization weights and the accumulation (the
+``[C, R] @ [R, k*(k+1)]`` product, or on a card where the cap runs the sum
+over the selected pairs, K6, from the tables' per-record factors).
+Accumulation runs on sub-chunks of points (default 512: a
 Hilbert sub-chunk's candidate set is far smaller than a 4096-point chunk's);
 the k-by-k solves run per outer chunk (default 4096), where the batched
 Newton-Schulz solve is efficient.  The chunk loops are eager Python loops.
@@ -36,11 +38,13 @@ from .. import tracing
 from ..constants import GC1999_SQ
 from .bucketed import (auto_block_size, default_max_blocks, hilbert3,
                        hilbert_blocks, pad_last, required_max_blocks, sq_norm3)
-from .dense import centered_r2, fused_platform_table, terms_from_r2
+from .dense import (PairFactors, accepted_counts, centered_r2,
+                    fused_platform_table, gather_blocks, pair_factors,
+                    selects_pairs, terms_from_r2)
 from .neighbors import normalize_coords
 from .solver import letkf_solve_cycle_from_normal
 from .update import (BUCKET_MIN_RECORDS, BucketBudget, DevicePlatform,
-                     dense_table, merge_budgets, point_shards)
+                     dense_factors, dense_table, merge_budgets, point_shards)
 
 
 class CycleGroup(NamedTuple):
@@ -57,13 +61,15 @@ class CycleBlocking(NamedTuple):
 
     Coordinates stay RAW (meters) so every client group normalizes with its
     own radii; only the culling geometry lives in the wide metric.  The
-    tables are per distinct client assimilation mask, and empty on a
-    geometry-only blocking (budget planning needs no tables).
+    tables and their factors are per distinct client assimilation mask, and
+    empty on a geometry-only blocking (budget planning needs no tables).
 
-    Shapes (NB = blocks, S = block size, F = k*(k+1)):
+    Shapes (NB = blocks, S = block size, F = k*(k+1), V = observed vars):
       xyz_raw:        [NB*S, 3]  raw coords, Hilbert(wide) order
       fused_by_mask:  tuple of [NB, S, F]
       nvalid_by_mask: tuple of [NB, S]
+      factors_by_mask: tuple of PairFactors, [NB*S, V, k+1] and [NB*S, V],
+                      one bgo shared
       rec_mask:       [NB, S]   True on real records, False on padding
       centers_w:      [NB, 3]   wide-normalized block centers
       radii_w:        [NB]      wide-normalized covering radii
@@ -75,6 +81,7 @@ class CycleBlocking(NamedTuple):
     rec_mask: torch.Tensor
     centers_w: torch.Tensor
     radii_w: torch.Tensor
+    factors_by_mask: Tuple[PairFactors, ...] = ()
 
     @property
     def n_blocks(self) -> int:
@@ -113,10 +120,15 @@ class PlatformPlan(NamedTuple):
     clients: Tuple[int, ...]         # group indices this platform feeds
     wide_h: float                    # widest client hclr (km)
     wide_v: float                    # widest client vclr (km; -1 = 2-D)
-    mask_idx: Tuple[int, ...]        # per client: index into tables/fused
-    tables: Tuple[Tuple[torch.Tensor, torch.Tensor], ...]
-                                     # per distinct mask: (fused [R, F],
-                                     # nvalid [R]); dense path only
+    mask_idx: Tuple[int, ...]        # per client: index into masks and
+                                     # the per-mask tables
+    masks: Tuple[tuple, ...]         # the distinct assimilation masks
+    nvalid: Tuple[torch.Tensor, ...]  # per distinct mask: accepted obs
+                                      # [R]; dense path only
+    factors: Tuple[PairFactors, ...]  # per distinct mask: the fused table's
+                                      # factors; dense path only (the table
+                                      # itself is built, by dense_table,
+                                      # for a call that takes the product)
     centers: Tuple[torch.Tensor, ...]  # per client: [1, 3] group-normalized
                                        # record centroid
     blocking: CycleBlocking | None   # bucketed path only
@@ -147,17 +159,21 @@ def _cycle_blocking(dp, masks, wide_h, wide_v, block_size, dtype,
     nb, s = hb.rec_mask.shape
     fused_by_mask: Tuple[torch.Tensor, ...] = ()
     nvalid_by_mask: Tuple[torch.Tensor, ...] = ()
+    factors_by_mask: Tuple[PairFactors, ...] = ()
     if not geometry_only:
         pairs = [fused_platform_table(dp.stats, m, order=hb.order,
                                       pad_to=nb * s, dtype=dtype)
                  for m in masks]
         fused_by_mask = tuple(f.view(nb, s, -1) for f, _ in pairs)
         nvalid_by_mask = tuple(nv.view(nb, s) for _, nv in pairs)
+        factors_by_mask = pair_factors(dp.stats, masks, order=hb.order,
+                                       pad_to=nb * s, dtype=dtype)
     xyz = dp.xyz if hb.order is None else dp.xyz[hb.order]
     return CycleBlocking(xyz_raw=pad_last(xyz, hb.pad),
                          fused_by_mask=fused_by_mask,
                          nvalid_by_mask=nvalid_by_mask, rec_mask=hb.rec_mask,
-                         centers_w=hb.centers, radii_w=hb.radii)
+                         centers_w=hb.centers, radii_w=hb.radii,
+                         factors_by_mask=factors_by_mask)
 
 
 @tracing.labelled("cycle.resolve")
@@ -200,9 +216,10 @@ def _resolve_plans(
                 masks.append(m)
             mask_idx.append(masks.index(m))
         cache = dp.cache if dp.cache is not None else {}
-        tables = []
+        nvalid, factors = (), ()
         if kind == "dense" and not geometry_only:
-            tables = [dense_table(dp, m, dtype) for m in masks]
+            nvalid = tuple(accepted_counts(dp.stats, m) for m in masks)
+            factors = dense_factors(dp, tuple(masks), dtype)
         wide_h, wide_v = _wide_metric(st, groups, clients)
         centers = []
         for gi in clients:
@@ -236,7 +253,8 @@ def _resolve_plans(
                 budget = default_max_blocks(blocking.n_blocks)
         plans.append(PlatformPlan(
             dp=dp, kind=kind, clients=clients, wide_h=wide_h, wide_v=wide_v,
-            mask_idx=tuple(mask_idx), tables=tuple(tables),
+            mask_idx=tuple(mask_idx), masks=tuple(masks), nvalid=nvalid,
+            factors=factors,
             centers=tuple(centers), blocking=blocking, budget=budget))
     return plans
 
@@ -254,9 +272,18 @@ def _group_r2(q_raw, obs_raw, st, ivar, center):
                        center)
 
 
+def _r2_dtype(q_raw, obs_raw, center):
+    """The dtype of :func:`_group_r2`'s distances."""
+    return torch.promote_types(torch.promote_types(q_raw.dtype, obs_raw.dtype),
+                               center.dtype)
+
+
 def _bucketed_cycle_terms(q_raw, plan, groups, weight_function):
     """Shared cull and gather, per-client terms, for one subchunk.
 
+    The gather takes the candidates' factors where the calls sum the
+    selected pairs (:func:`.dense.selects_pairs`: the same for every client
+    of the platform), their fused rows where they take the product.
     Returns ``(per-client list of (a, g, cnt), overflow)``; ``overflow``
     counts candidate blocks that did not fit the budget (their obs are
     dropped, so planned budgets keep it 0).
@@ -280,10 +307,21 @@ def _bucketed_cycle_terms(q_raw, plan, groups, weight_function):
         obs_c = cb.xyz_raw.view(nb, s, 3)[idx].reshape(m * s, 3)
         row_mask = (keep[:, None] & cb.rec_mask[idx]).reshape(m * s)
         used = set(plan.mask_idx)
-        fused_c = {mi: cb.fused_by_mask[mi][idx].reshape(m * s, -1)
-                   for mi in used}
         nvalid_c = {mi: cb.nvalid_by_mask[mi][idx].reshape(m * s)
                     for mi in used}
+        select = selects_pairs(
+            m * s, st.max_lz_pts,
+            _r2_dtype(q_raw, cb.xyz_raw, plan.centers[0]), q_raw.device,
+            cb.factors_by_mask[0] if cb.factors_by_mask else None)
+        fused_c, factors_c = dict.fromkeys(used), dict.fromkeys(used)
+        if select:
+            bgo_c = gather_blocks(cb.factors_by_mask[0].bgo, nb, idx)
+            for mi in used:
+                factors_c[mi] = PairFactors(
+                    bgo_c, gather_blocks(cb.factors_by_mask[mi].e, nb, idx))
+        else:
+            for mi in used:
+                fused_c[mi] = cb.fused_by_mask[mi][idx].reshape(m * s, -1)
 
     outs = []
     for ci, gi in enumerate(plan.clients):
@@ -291,20 +329,32 @@ def _bucketed_cycle_terms(q_raw, plan, groups, weight_function):
         mi = plan.mask_idx[ci]
         outs.append(terms_from_r2(
             r2, fused_c[mi], nvalid_c[mi], n_max=st.max_lz_pts,
-            weight_function=weight_function, row_mask=row_mask))
+            weight_function=weight_function, row_mask=row_mask,
+            factors=factors_c[mi]))
     return outs, overflow
 
 
 def _dense_cycle_terms(q_raw, plan, groups, weight_function):
-    """All-records accumulation per client group (small platforms)."""
+    """All-records accumulation per client group (small platforms).  A call
+    that takes the dense product (:func:`.dense.selects_pairs` does not
+    hold) reads the fused table, built at its first use and kept in the
+    platform's cache (:func:`.update.dense_table`); where every call sums
+    the selected pairs, as capped calls on a card do, none is built."""
     st = plan.dp.static
     outs = []
     for ci, gi in enumerate(plan.clients):
         r2 = _group_r2(q_raw, plan.dp.xyz, st, groups[gi].ivars[0],
                        plan.centers[ci])
-        fused, nvalid = plan.tables[plan.mask_idx[ci]]
-        outs.append(terms_from_r2(r2, fused, nvalid, n_max=st.max_lz_pts,
-                                  weight_function=weight_function))
+        mi = plan.mask_idx[ci]
+        factors = plan.factors[mi]
+        fused = None
+        if not selects_pairs(r2.shape[1], st.max_lz_pts, r2.dtype, r2.device,
+                             factors):
+            fused, _ = dense_table(plan.dp, plan.masks[mi], factors.e.dtype)
+        outs.append(terms_from_r2(r2, fused, plan.nvalid[mi],
+                                  n_max=st.max_lz_pts,
+                                  weight_function=weight_function,
+                                  factors=factors))
     return outs
 
 

@@ -16,10 +16,15 @@ The ``max_lz_pts`` cap becomes a per-point threshold on ``r2``: the largest
 multisection.  Where the reference keeps an arbitrary ``max_lz_pts`` subset of
 the in-radius obs, this keeps the nearest ones; obs tied within the
 multisection resolution of the threshold may be left out.
+
+Where the cap runs on a card, a point keeps a few hundred of a call's
+thousands of records, and the terms are summed over the selected pairs alone
+from the table's per-record factors (:class:`PairFactors`, K6:
+:mod:`.select_kernel`) instead of the dense product.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -27,7 +32,7 @@ import torch.nn.functional as F
 from .. import tracing
 from ..constants import GC1999_SQ
 from ..localization import WEIGHT_GC1999, gaspari_cohn_1999
-from . import cap_kernel
+from . import cap_kernel, select_kernel
 from .whiten import ObsStats
 
 #: ``accum_precision`` names of the JAX package (bf16_3x and full float32
@@ -56,6 +61,79 @@ def set_accum_precision(name: str) -> None:
 _TABLE_ROW_SLICE = 16384
 
 
+class PairFactors(NamedTuple):
+    """One assimilation mask's per-record factors of the fused table.
+
+    Record r's row of :func:`fused_platform_table` is
+    ``sum_v (e[r, v] bgo[r, v, :k]) (x) bgo[r, v]`` (:func:`fused_rows`).
+    Shapes (P = records, V = observed variables, k = members):
+
+      bgo: [P, V, k+1]  ``[bg | omm]``, shared by every mask of a platform
+      e:   [P, V]       ``(valid & assim) / err^2``, 0 elsewhere
+    """
+
+    bgo: torch.Tensor
+    e: torch.Tensor
+
+
+def _assimilated(stats: ObsStats, assim_v) -> torch.Tensor:
+    """``valid & assim_v`` ``[V, R]``; the mask is applied a variable at a
+    time, so that nothing is copied to the device (a copy from the host
+    would wait for the card)."""
+    if stats.omm.shape[0] != len(assim_v):
+        raise ValueError(f"assim mask has {len(assim_v)} vars, stats have "
+                         f"{stats.omm.shape[0]}")
+    valid = stats.valid.clone()
+    for v, on in enumerate(assim_v):
+        if not on:
+            valid[v].fill_(False)
+    return valid
+
+
+def accepted_counts(stats: ObsStats, assim_v) -> torch.Tensor:
+    """``[R]`` int32: each record's observations that pass QC and are
+    assimilated under ``assim_v`` (:func:`fused_platform_table`'s counts,
+    in record order)."""
+    return _assimilated(stats, assim_v).sum(0, dtype=torch.int32)
+
+
+def pair_factors(
+    stats: ObsStats,
+    masks,
+    *,
+    order: torch.Tensor | None = None,
+    pad_to: int | None = None,
+    dtype=torch.float32,
+) -> Tuple[PairFactors, ...]:
+    """One :class:`PairFactors` per assimilation mask of ``masks``, in the
+    order and padding of :func:`fused_platform_table` with the same
+    ``order`` and ``pad_to`` (padding rows are 0); the masks share one
+    ``bgo``."""
+    bg, omm = stats.bg.to(dtype), stats.omm.to(dtype)
+    if order is not None:
+        bg, omm = bg[:, order], omm[:, order]
+    pad = 0 if pad_to is None else max(0, pad_to - bg.shape[1])
+    bgo = F.pad(torch.cat([bg, omm[..., None]], -1), (0, 0, 0, pad))
+    bgo = bgo.permute(1, 0, 2).contiguous()
+    err = stats.err.to(dtype)
+    out = []
+    for assim_v in masks:
+        e = torch.where(_assimilated(stats, assim_v), 1.0 / (err * err), 0.0)
+        if order is not None:
+            e = e[:, order]
+        out.append(PairFactors(bgo, F.pad(e, (0, pad)).T.contiguous()))
+    return tuple(out)
+
+
+def fused_rows(factors: PairFactors) -> torch.Tensor:
+    """``[P, k*(k+1)]``: the fused table's rows that ``factors`` multiply
+    out to."""
+    bgo, e = factors
+    k = bgo.shape[-1] - 1
+    ebg = e[..., None] * bgo[..., :k]
+    return torch.einsum("rvk,rvl->rkl", ebg, bgo).reshape(bgo.shape[0], -1)
+
+
 def fused_platform_table(
     stats: ObsStats,
     assim_v: Tuple[bool, ...],
@@ -69,38 +147,46 @@ def fused_platform_table(
 
     QC, the assimilation mask and the error scaling fold into
     ``E_vr = (valid & assim_v) / err^2``; record r's row is the
-    ``k x (k+1)`` matrix ``[BGBG_r | OMBG_r]`` flattened row-major.
+    ``k x (k+1)`` matrix ``[BGBG_r | OMBG_r]`` flattened row-major, the rows
+    that :func:`pair_factors`' factors multiply out to (:func:`fused_rows`).
     ``order`` reorders the records and ``pad_to`` zero-pads them to ``P``
-    rows; both act on the small ``[V, R, k]`` statistics before the table is
+    rows; both act on the small per-record factors before the table is
     built, and the build runs in row slices of ``_TABLE_ROW_SLICE``, so the
     only ``O(R k^2)`` array is the table itself.
     """
-    if stats.omm.shape[0] != len(assim_v):
-        raise ValueError(f"assim mask has {len(assim_v)} vars, stats have "
-                         f"{stats.omm.shape[0]}")
-    active = torch.tensor(assim_v, dtype=torch.bool, device=stats.omm.device)
-    valid = stats.valid & active[:, None]                      # [V, R]
-    err = stats.err.to(dtype)
-    e = torch.where(valid, 1.0 / (err * err), 0.0)
-    bg, omm = stats.bg.to(dtype), stats.omm.to(dtype)
-    nvalid = valid.sum(0, dtype=torch.int32)                   # [R]
+    (bgo, e), = pair_factors(stats, (assim_v,), order=order, pad_to=pad_to,
+                             dtype=dtype)
+    nvalid = accepted_counts(stats, assim_v)                          # [R]
     if order is not None:
-        e, bg, omm, nvalid = e[:, order], bg[:, order], omm[:, order], nvalid[order]
-    if pad_to is not None and pad_to > e.shape[1]:
-        pad = pad_to - e.shape[1]
-        e, omm = F.pad(e, (0, pad)), F.pad(omm, (0, pad))
-        bg = F.pad(bg, (0, 0, 0, pad))
-        nvalid = F.pad(nvalid, (0, pad))
-    ebg = e[..., None] * bg                                    # [V, P, k]
-    bg_ext = torch.cat([bg, omm[..., None]], -1)               # [V, P, k+1]
-    k = bg.shape[-1]
-    p = ebg.shape[1]
-    fused = torch.empty((p, k * (k + 1)), dtype=bg.dtype, device=bg.device)
+        nvalid = nvalid[order]
+    nvalid = F.pad(nvalid, (0, bgo.shape[0] - nvalid.shape[0]))
+    k = bgo.shape[-1] - 1
+    p = bgo.shape[0]
+    fused = torch.empty((p, k * (k + 1)), dtype=bgo.dtype, device=bgo.device)
     for r0 in range(0, p, _TABLE_ROW_SLICE):
         r1 = min(p, r0 + _TABLE_ROW_SLICE)
-        fused[r0:r1] = torch.einsum(
-            "vrk,vrl->rkl", ebg[:, r0:r1], bg_ext[:, r0:r1]).reshape(r1 - r0, -1)
+        fused[r0:r1] = fused_rows(PairFactors(bgo[r0:r1], e[r0:r1]))
     return fused, nvalid
+
+
+def gather_blocks(x: torch.Tensor, n_blocks: int, idx: torch.Tensor):
+    """Rows of ``x`` (``[n_blocks * S, ...]``, a blocked table or factor) of
+    the blocks ``idx``, flattened to ``[len(idx) * S, ...]``."""
+    s = x.shape[0] // n_blocks
+    return x.view(n_blocks, s, *x.shape[1:])[idx].reshape(-1, *x.shape[1:])
+
+
+def selects_pairs(r: int, n_max: int, dtype, device,
+                  factors: PairFactors | None) -> bool:
+    """Whether :func:`terms_from_r2` sums the selected pairs in K6
+    (:mod:`.select_kernel`) for ``[C, r]`` distances of ``dtype`` on
+    ``device``: where the cap search runs on a card (``r > n_max``, float32
+    CUDA distances) and float32 ``factors`` are given.  Every other call
+    takes the dense product with the fused table.  Decided from the input
+    alone, so that a caller can gather only what the call will read."""
+    return (r > n_max and torch.device(device).type == "cuda"
+            and dtype == torch.float32 and factors is not None
+            and factors.e.dtype == torch.float32)
 
 
 def _cap_threshold(r2: torch.Tensor, n_max: int, r2_cap: float, *,
@@ -126,46 +212,79 @@ def _cap_threshold(r2: torch.Tensor, n_max: int, r2_cap: float, *,
     return torch.where(over, lo, torch.full_like(lo, r2_cap))
 
 
+def product_terms(r2, sel, fused, nvalid, weight_function):
+    """The dense product: ``(a_obs [C, k, k], g [C, k], count [C] int32)``
+    of the ``[C, R]`` selection ``sel`` at distances ``r2``, weighted and
+    multiplied with the ``[R, k*(k+1)]`` fused table.  The label
+    ``accumulate.weights`` and the span ``accumulate.matmul``."""
+    c = r2.shape[0]
+    k = int((-1 + (1 + 4 * fused.shape[-1]) ** 0.5) / 2)
+    with tracing.label("accumulate.weights"):
+        r2_sel = torch.where(sel, r2, 0.0)
+        if weight_function == WEIGHT_GC1999:
+            w2 = gaspari_cohn_1999(torch.sqrt(r2_sel))
+        else:
+            w2 = torch.exp(-0.5 * r2_sel)   # (exp(0.25 r2))^-2, letkf_core.f90:444
+        gm = torch.where(sel, w2, 0.0).to(fused.dtype)             # [C, R]
+    with tracing.span("accumulate.matmul"):
+        out3 = (gm @ fused).view(c, k, k + 1)
+        count = (sel.to(torch.float32) @ nvalid.to(torch.float32)).to(torch.int32)
+    return out3[:, :, :k], out3[:, :, k], count
+
+
 def terms_from_r2(
     r2: torch.Tensor,
-    fused: torch.Tensor,
+    fused: torch.Tensor | None,
     nvalid: torch.Tensor,
     *,
     n_max: int,
     weight_function: int,
     r2_cap: float = GC1999_SQ,
     row_mask: torch.Tensor | None = None,
+    factors: PairFactors | None = None,
 ):
     """Capped, localization-weighted normal terms from a distance matrix.
 
     Args:
       r2:     ``[C, R]`` squared normalized distances.
-      fused:  ``[R, k*(k+1)]`` rows in :func:`fused_platform_table`'s layout.
+      fused:  ``[R, k*(k+1)]`` rows in :func:`fused_platform_table`'s layout;
+              None where :func:`selects_pairs` holds.
       nvalid: ``[R]`` accepted-obs count per record.
       row_mask: optional ``[R]`` bool; False rows never contribute.
+      factors: the table's :class:`PairFactors` in the same record order.
 
     Returns ``(a_obs [C, k, k], g [C, k], count [C] int32)``.
 
     Where the multisection runs (``R > n_max``) on float32 CUDA distances,
     the row mask, the threshold and the selection are one launch of the
     cap-search kernel (:func:`.cap_kernel.launch`, bit for bit with this
-    function's own code, which every other call takes).
+    function's own code, which every other call takes); given float32
+    ``factors`` there, the terms are one launch of K6, which sums the
+    selected pairs alone (:func:`.select_kernel.launch`; the same terms
+    with the sum in another order).  Every other call takes the dense
+    product (:func:`product_terms`).
 
     Spans ``accumulate.cap`` (the row mask, the cap's threshold and the
-    selection) and ``accumulate.matmul``, the label ``accumulate.weights``;
-    counters ``accumulate.pairs`` (``C x R``, what the product multiplies),
+    selection) and ``accumulate.matmul`` (the product, or K6), the label
+    ``accumulate.weights`` (the product's weights); counters
+    ``accumulate.pairs`` (``C x R``, what the product multiplies),
     ``accumulate.pairs_selected``, where the multisection runs
     ``accumulate.cap_points`` (``C``) and ``accumulate.cap_bound`` (rows
-    where the cap binds), and ``accumulate.cap_launches`` (the kernel's
-    launches) (:mod:`..tracing`).
+    where the cap binds), ``accumulate.cap_launches`` (the cap search's
+    launches) and ``accumulate.select_launches`` (K6's) (:mod:`..tracing`).
     """
     c, r = r2.shape
-    kk_k = fused.shape[-1]
-    k = int((-1 + (1 + 4 * kk_k) ** 0.5) / 2)   # k*(k+1) = kk_k
-    if k * (k + 1) != kk_k:
-        raise ValueError(f"table width {kk_k} is not k*(k+1)")
     capped = r > n_max
     kernel = capped and r2.is_cuda and r2.dtype == torch.float32
+    select = selects_pairs(r, n_max, r2.dtype, r2.device, factors)
+    if not select:
+        if fused is None:
+            raise ValueError("this call takes the dense product, which needs "
+                             "the fused table")
+        kk_k = fused.shape[-1]
+        k = int((-1 + (1 + 4 * kk_k) ** 0.5) / 2)   # k*(k+1) = kk_k
+        if k * (k + 1) != kk_k:
+            raise ValueError(f"table width {kk_k} is not k*(k+1)")
     with tracing.span("accumulate.cap"):
         if kernel:
             # sel is False at masked records, so the weights may read r2
@@ -178,16 +297,13 @@ def terms_from_r2(
                 sel = r2 <= _cap_threshold(r2, n_max, r2_cap)[:, None]
             else:
                 sel = r2 <= r2_cap
-    with tracing.label("accumulate.weights"):
-        r2_sel = torch.where(sel, r2, 0.0)
-        if weight_function == WEIGHT_GC1999:
-            w2 = gaspari_cohn_1999(torch.sqrt(r2_sel))
-        else:
-            w2 = torch.exp(-0.5 * r2_sel)   # (exp(0.25 r2))^-2, letkf_core.f90:444
-        gm = torch.where(sel, w2, 0.0).to(fused.dtype)             # [C, R]
-    with tracing.span("accumulate.matmul"):
-        out3 = (gm @ fused).view(c, k, k + 1)
-        count = (sel.to(torch.float32) @ nvalid.to(torch.float32)).to(torch.int32)
+    if select:
+        with tracing.span("accumulate.matmul"):
+            a_obs, g, count = select_kernel.launch(
+                r2, sel, factors.bgo, factors.e, nvalid, weight_function)
+    else:
+        a_obs, g, count = product_terms(r2, sel, fused, nvalid,
+                                        weight_function)
     if tracing.on():
         with tracing.label("tracing.count"):
             tracing.count("accumulate.pairs", c * r)
@@ -198,7 +314,9 @@ def terms_from_r2(
                               else ((r2 <= r2_cap).sum(1) > n_max).sum())
             if kernel:
                 tracing.count("accumulate.cap_launches", 1)
-    return out3[:, :, :k], out3[:, :, k], count
+            if select:
+                tracing.count("accumulate.select_launches", 1)
+    return a_obs, g, count
 
 
 def centered_r2(q: torch.Tensor, obs: torch.Tensor,
@@ -220,18 +338,22 @@ def dense_platform_terms(
     n_max: int,
     weight_function: int,
     r2_cap: float = GC1999_SQ,
+    factors: PairFactors | None = None,
 ):
     """One platform's normal terms for a chunk of points, over all records.
 
     ``q_norm`` ``[C, 3]`` and ``obs_norm`` ``[R, 3]`` in the same
     localization-normalized coordinates; distances are taken about the
     records' mean; ``fused`` and ``nvalid`` are
-    :func:`fused_platform_table`'s.  Returns ``(a_obs [C, k, k], g [C, k],
-    count [C] int32)`` in the table's dtype.
+    :func:`fused_platform_table`'s, ``factors`` its :class:`PairFactors`
+    (:func:`terms_from_r2` takes them where the cap runs on a card).
+    Returns ``(a_obs [C, k, k], g [C, k], count [C] int32)`` in the table's
+    dtype.
     """
     obs = obs_norm.to(q_norm.dtype)
     center = (obs.mean(0, keepdim=True) if obs.shape[0]
               else torch.zeros((1, 3), dtype=q_norm.dtype, device=q_norm.device))
     return terms_from_r2(centered_r2(q_norm, obs, center), fused, nvalid,
                          n_max=n_max,
-                         weight_function=weight_function, r2_cap=r2_cap)
+                         weight_function=weight_function, r2_cap=r2_cap,
+                         factors=factors)

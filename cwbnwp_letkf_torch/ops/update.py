@@ -19,7 +19,7 @@ from ..obs.base import PlatformObs, PlatformStatic
 from .bucketed import (auto_block_size, bucket_platform,
                        bucketed_platform_terms, default_max_blocks, hilbert3,
                        pad_last, required_max_blocks)
-from .dense import dense_platform_terms, fused_platform_table
+from .dense import dense_platform_terms, fused_platform_table, pair_factors
 from .neighbors import normalize_coords, radius_neighbors
 from .solver import letkf_solve_from_normal, letkf_solve_group_from_normal
 from .whiten import ObsStats, accumulate_platform_terms, platform_obs_stats
@@ -89,6 +89,18 @@ def dense_table(dp: DevicePlatform, mask: tuple, dtype):
     return cache[key]
 
 
+def dense_factors(dp: DevicePlatform, masks: tuple, dtype):
+    """The :class:`.dense.PairFactors` of :func:`dense_table`'s tables, one
+    per assimilation mask of ``masks``, in record order
+    (:func:`.dense.pair_factors`), built once per ``(masks, dtype)`` and
+    kept in ``dp.cache``."""
+    cache = dp.cache if dp.cache is not None else {}
+    key = ("factors", masks, str(dtype))
+    if key not in cache:
+        cache[key] = pair_factors(dp.stats, masks, dtype=dtype)
+    return cache[key]
+
+
 def _check_method(method: str) -> None:
     if method not in ACCUMULATE_METHODS:
         raise ValueError(f"method must be one of {ACCUMULATE_METHODS}")
@@ -114,9 +126,9 @@ def _platform_accumulators(active, kinds, iv, max_blocks, solver_dtype,
                            q_chunks=None):
     """Each active platform's accumulation: ``(dp, obs_norm, kind, payload)``.
 
-    The payload is the fused table and its counts, or the blocking (which
-    holds its own table, in block order) and its candidate budget; a gather
-    platform has none.  The
+    The payload is the fused table, its counts and its factors, or the
+    blocking (which holds its own table and factors, in block order) and its
+    candidate budget; a gather platform has none.  The
     budget is the planned one (``max_blocks`` a dict of
     :class:`BucketBudget`, or an int), else the exact need of ``q_chunks``
     ``[n_chunks, chunk, 3]`` rounded up to 16s, else the heuristic.
@@ -131,7 +143,9 @@ def _platform_accumulators(active, kinds, iv, max_blocks, solver_dtype,
             accs.append((dp, on, "gather", None))
             continue
         if kind == "dense":
-            accs.append((dp, on, "dense", dense_table(dp, mask, solver_dtype)))
+            accs.append((dp, on, "dense", (
+                *dense_table(dp, mask, solver_dtype),
+                dense_factors(dp, (mask,), solver_dtype)[0])))
             continue
         mb_req = (max_blocks.get(st.name) if isinstance(max_blocks, dict)
                   else max_blocks)
@@ -175,9 +189,10 @@ def _accumulate_chunk(qc, accs, iv, weight_function, solver_dtype, k):
                 max_blocks=mb)
             ovf += o_p
         elif kind == "dense":
+            fused, nvalid, factors = payload
             a_p, g_p, c_p = dense_platform_terms(
-                qn, on, *payload, n_max=st.max_lz_pts,
-                weight_function=weight_function)
+                qn, on, fused, nvalid, n_max=st.max_lz_pts,
+                weight_function=weight_function, factors=factors)
         else:
             nb = radius_neighbors(qn, on, n_max=st.max_lz_pts, chunk=c)
             a_p, g_p, c_p = accumulate_platform_terms(

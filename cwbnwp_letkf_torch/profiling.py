@@ -15,7 +15,8 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
-from .ops.dense import dense_platform_terms, fused_platform_table
+from .ops.dense import (dense_platform_terms, fused_platform_table,
+                         pair_factors)
 from .ops.neighbors import normalize_coords
 from .ops.solver import apply_weight_factors, letkf_weight_factors_from_normal
 from .tracing import count_sync
@@ -57,8 +58,9 @@ def device_breakdown(
 
     Stages of the update pipeline: ``localize_accumulate`` (the dense path
     over all records of every active platform: distance product, cap
-    threshold, weighted table product; :func:`.ops.dense.dense_platform_terms`,
-    as the JAX package times it.  A platform that the update accumulates
+    threshold, weighted table product, or on a card where the cap runs the
+    sum over the selected pairs (K6);
+    :func:`.ops.dense.dense_platform_terms`, as the JAX package times it.  A platform that the update accumulates
     bucketed is timed on this dense path all the same, and its table is
     built here and dropped on return, never cached), ``eigh`` (the
     eigen factors of the float32 normal matrices,
@@ -89,14 +91,16 @@ def device_breakdown(
             normalize_coords(dp.xyz, st.hclr[ivar], st.vclr[ivar]),
             fused_platform_table(dp.stats, st.assim_mask(ivar),
                                  dtype=torch.float32),
+            pair_factors(dp.stats, (st.assim_mask(ivar),))[0],
             st.max_lz_pts))
 
     def run_accumulate():
         a = torch.zeros((b, k, k), dtype=torch.float32, device=dev)
         g = torch.zeros((b, k), dtype=torch.float32, device=dev)
-        for qn, on, table, n_max in terms:
+        for qn, on, table, factors, n_max in terms:
             a_p, g_p, _ = dense_platform_terms(
-                qn, on, *table, n_max=n_max, weight_function=weight_function)
+                qn, on, *table, n_max=n_max, weight_function=weight_function,
+                factors=factors)
             a += a_p
             g += g_p
         return a, g

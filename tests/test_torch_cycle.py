@@ -149,7 +149,7 @@ def test_port_imports_without_jax():
         "            'ops.ns_kernel', 'ops.cuda_build', 'driver', 'config', 'projection', 'metrics',\n"
         "            'models.state', 'models.vcoord', 'io.netcdf', 'cli', 'synthetic_case',\n"
         "            'profiling', 'tracing', 'io.native', 'obs.gts', 'obs.radar',\n"
-        "            'ops.neighbors',\n"
+        "            'ops.neighbors', 'ops.cap_kernel', 'ops.select_kernel',\n"
         "            'ops.whiten', 'ops.dense', 'constants', 'obs.synthetic',\n"
         "            'parallel.mesh', 'parallel.update', 'parallel.multihost',\n"
         "            'parallel.scaling_model', 'examples.scaling_bench',\n"

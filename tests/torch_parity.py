@@ -158,6 +158,43 @@ def cap_case(rng, b, r, inside, masked=0.0):
     return r2, mask
 
 
+def select_stats(rng, v, r, k, valid=0.8):
+    """``ObsStats`` of ``r`` records with ``v`` observed variables and ``k``
+    members for K6's checks: normal perturbations and departures, errors in
+    [0.5, 2), a share ``valid`` of the observations accepted."""
+    import torch
+
+    from cwbnwp_letkf_torch.ops.whiten import ObsStats
+
+    return ObsStats(
+        omm=torch.from_numpy(rng.standard_normal((v, r)).astype(np.float32)),
+        bg=torch.from_numpy(rng.standard_normal((v, r, k)).astype(np.float32)),
+        err=torch.from_numpy((0.5 + 1.5 * rng.random((v, r))).astype(np.float32)),
+        valid=torch.from_numpy(rng.random((v, r)) < valid))
+
+
+def select_tolerance(r2, sel, factors, nvalid, weight_function):
+    """The float32 bound between two sums of K6's terms in any order:
+    ``2 (n + 3)`` roundings (n the most terms a point adds) of the sum of
+    the terms' magnitudes, ``[C, k, k+1]`` float64 on ``r2``'s device."""
+    import torch
+
+    from cwbnwp_letkf_torch.localization import (WEIGHT_GC1999,
+                                                 gaspari_cohn_1999)
+
+    bgo, e = (x.double() for x in factors)
+    k = bgo.shape[-1] - 1
+    took = sel & (nvalid > 0)[None]
+    w = (gaspari_cohn_1999(torch.sqrt(r2)) if weight_function == WEIGHT_GC1999
+         else torch.exp(-0.5 * r2))
+    w = torch.where(took, w, 0.0).double().abs()
+    u = (e[..., None] * bgo[..., :k]).abs()
+    per_record = torch.einsum("rvk,rvl->rkl", u, bgo.abs())
+    scale = (w @ per_record.reshape(per_record.shape[0], -1)).view(-1, k, k + 1)
+    rows = int(took.sum(1).max()) * bgo.shape[1] if took.numel() else 0
+    return 2 * (rows + 3) * 2.0 ** -24 * scale
+
+
 def cap_tie_rows(r, n_max):
     """``[m, r]`` float32 rows that stress the cap search's edges at the cap
     ``GC1999_SQ``: the first round's candidates themselves, one value
